@@ -1,11 +1,14 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/H100 port on one CUDA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--sweep-tiles]
 
 Builds the port's CUDA kernels from ``ws_mgmap_tpu_torch/ops/kernels/csrc``
 (into ``build/ws_mgmap_tpu_torch/``), holds each kernel against its plain
-PyTorch twin at the main path's shapes and times both, then drives the
+PyTorch twin at the main path's shapes and times both (the splat; the
+fused conv's wgmma kernel at every UNet call site at B=6 and B=24 and its
+direct kernel at an fp32 and a ragged-channel shape; with
+``--sweep-tiles`` also the wgmma kernel with every tile), then drives the
 map-update step (``RolloutEngine.update_map``) at full width: the
 ResNet18-UNet over 224^2 RGB, 256^2 depth, 100^2 ego and 240^2 global maps,
 random weights from a seed. Production mode (bf16 + rotate-in-splat) runs
@@ -20,6 +23,7 @@ file, the script fails.
 """
 from __future__ import annotations
 
+import argparse
 import json
 import math
 import subprocess
@@ -37,6 +41,9 @@ ROOT = Path(__file__).resolve().parent
 # HBM3 bandwidth
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 PEAK_BYTES = 3.35e12
+# GPU clocks per second at the H100's highest SM clock: a sleep of this
+# many cycles lasts at least a second
+SLEEP_CYCLES_PER_S = 1.98e9
 
 EGO, DEPTH_HW, RGB_HW, C = 100, 256, 224, 64
 
@@ -45,19 +52,34 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
-    """Mean device time of ``fn`` over ``iters`` calls (CUDA events)."""
+def cuda_ms(fn, iters: int, warmup: int = 2, reps: int = 3
+            ) -> tuple[float, float]:
+    """(device ms, host ms) per call of ``fn``. The device time is the
+    median of ``reps`` readings, each from CUDA events around ``iters``
+    back-to-back calls while the stream is held (``torch.cuda._sleep``)
+    until the host has enqueued them all, so the host's launch cost is not
+    counted in it; the host time is what enqueueing one call costs the
+    Python thread."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
+    t0 = time.perf_counter()
     for _ in range(iters):
         fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
+    enqueue_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    readings = []
+    for _ in range(reps):
+        torch.cuda._sleep(int((1.5 * enqueue_s + 1e-3) * SLEEP_CYCLES_PER_S))
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        end.synchronize()
+        readings.append(start.elapsed_time(end) / iters)
+    return float(np.median(readings)), enqueue_s * 1e3 / iters
 
 
 def bound_ms(nbytes: float, flops: float, dtype) -> dict:
@@ -106,17 +128,18 @@ def check_splat(ksplat, gen) -> list[dict]:
             b, ids.shape[1], C).contiguous()
         f32 = feats.float()
         buf = torch.empty(b, EGO * EGO + 1, C, device=feats.device)
-        lib = cuda_ms(lambda: buf.fill_(float("-inf")).scatter_reduce_(
+        lib, _ = cuda_ms(lambda: buf.fill_(float("-inf")).scatter_reduce_(
             1, idx, f32, "amax", include_self=False), 10)
-        kern = cuda_ms(lambda: ksplat.splat_max(feats, ids, EGO), 20)
-        plain = cuda_ms(lambda: ksplat.splat_max_plain(feats, ids, EGO), 10)
+        kern, host = cuda_ms(lambda: ksplat.splat_max(feats, ids, EGO), 20)
+        plain, _ = cuda_ms(lambda: ksplat.splat_max_plain(feats, ids, EGO),
+                           10)
         n_valid = int((ids >= 0).sum())
         nbytes = (n_valid * C * feats.element_size() + ids.numel() * 4
                   + b * EGO * EGO * C * 4)
         rows.append(dict(B=b, dtype=str(dtype).split(".")[-1],
                          valid_share=n_valid / ids.numel(),
-                         max_abs_err=err, ms=kern, plain_ms=plain,
-                         library_ms=lib,
+                         max_abs_err=err, ms=kern, host_ms=host,
+                         plain_ms=plain, library_ms=lib,
                          **bound_ms(nbytes, n_valid * C, dtype)))
     return rows
 
@@ -142,9 +165,17 @@ CONV_SITES = [
 # the kernel and the twin both sum in fp32 in different orders; a bf16
 # output may then round one bf16 ulp (2^-7 relative) apart
 CONV_TOL = {torch.bfloat16: (2**-7, 1e-3), torch.float32: (1e-4, 1e-4)}
+PRODUCTION_B = (6, 24)  # the production drives' batches
 
 
-def conv_case(kconv, name, h, c1, c2, co, res, dtype, b, gen):
+def conv_launches(kconv) -> dict:
+    return {"conv_wgmma": kconv.conv3x3_bn_relu_wgmma.launches,
+            "conv_direct": kconv.conv3x3_bn_relu_direct.launches}
+
+
+def conv_operands(h, c1, c2, co, res, dtype, b, gen):
+    """Random operands of one call site: x, x2, HWIO w, scale, bias,
+    residual (x2 and residual None where the site has none)."""
     dev = torch.device("cuda")
 
     def rnd(*shape, scale=1.0):
@@ -156,24 +187,20 @@ def conv_case(kconv, name, h, c1, c2, co, res, dtype, b, gen):
     scale = torch.rand(co, generator=gen, device=dev) + 0.5
     bias = rnd(co, scale=0.1)
     residual = rnd(b, h, h, co).to(dtype) if res else None
-    got = kconv.conv3x3_bn_relu(x, w, scale, bias, True, residual, x2)
-    torch.cuda.synchronize()
-    want = kconv.conv3x3_bn_relu_plain(x, w, scale, bias, True, residual, x2)
-    diff = (got.float() - want.float()).abs()
-    rtol, atol = CONV_TOL[dtype]
-    if not bool((diff <= rtol * want.float().abs() + atol).all()):
-        raise AssertionError(f"conv {name} {dtype}: max_abs_err "
-                             f"{float(diff.max())} beyond rtol {rtol} "
-                             f"atol {atol}")
+    return x, x2, w, scale, bias, residual
 
-    # library yardstick: cuDNN conv + BN + ReLU (+ residual) in the input
-    # dtype, channels_last, over the materialized concat
+
+def cudnn_call(x, x2, w, scale, bias, residual):
+    """The library yardstick: cuDNN conv + BN + ReLU (+ residual) in the
+    input dtype, channels_last, over the materialized concat."""
     def nchw(t):
         return t.permute(0, 3, 1, 2)
 
+    co = w.shape[-1]
     w_oihw = w.permute(3, 2, 0, 1).contiguous(
         memory_format=torch.channels_last)
-    mean, var = torch.zeros(co, device=dev), torch.ones(co, device=dev)
+    mean = torch.zeros(co, device=x.device)
+    var = torch.ones(co, device=x.device)
 
     def library():
         xi = nchw(x) if x2 is None else torch.cat([nchw(x), nchw(x2)], 1)
@@ -183,29 +210,114 @@ def conv_case(kconv, name, h, c1, c2, co, res, dtype, b, gen):
             y = y + nchw(residual)
         return F.relu(y)
 
+    return library
+
+
+def conv_case(kconv, name, h, c1, c2, co, res, dtype, b, gen):
+    """One call site: the kernel that the dispatch picks vs the twin (and
+    which kernel it was), then the times of that kernel (weights in its
+    own layout, as the UNet passes them), the twin, cuDNN, and at bf16 the
+    direct kernel too."""
+    x, x2, w, scale, bias, residual = conv_operands(h, c1, c2, co, res,
+                                                    dtype, b, gen)
+    variant = kconv.conv_variant(dtype, c1, c2, co)
+    before = conv_launches(kconv)
+    got = kconv.conv3x3_bn_relu(x, w, scale, bias, True, residual, x2)
+    torch.cuda.synchronize()
+    ran = {k: v - before[k] for k, v in conv_launches(kconv).items()}
+    if ran != {"conv_wgmma": int(variant == "wgmma"),
+               "conv_direct": int(variant == "direct")}:
+        raise AssertionError(f"conv {name} B={b}: {variant} expected, ran "
+                             f"{ran}")
+    want = kconv.conv3x3_bn_relu_plain(x, w, scale, bias, True, residual, x2)
+    diff = (got.float() - want.float()).abs()
+    rtol, atol = CONV_TOL[dtype]
+    if not bool((diff <= rtol * want.float().abs() + atol).all()):
+        raise AssertionError(f"conv {name} B={b} {dtype}: max_abs_err "
+                             f"{float(diff.max())} beyond rtol {rtol} "
+                             f"atol {atol}")
+
     iters = 10 if h >= 112 else 30
-    kern = cuda_ms(lambda: kconv.conv3x3_bn_relu(x, w, scale, bias, True,
-                                                 residual, x2), iters)
-    plain = cuda_ms(lambda: kconv.conv3x3_bn_relu_plain(
+    wk = kconv.kernel_weight(w, variant)
+    kern, host = cuda_ms(lambda: kconv.KERNELS[variant](
+        x, wk, scale, bias, True, residual, x2), iters)
+    plain, _ = cuda_ms(lambda: kconv.conv3x3_bn_relu_plain(
         x, w, scale, bias, True, residual, x2), iters)
-    lib = cuda_ms(library, iters)
+    lib, _ = cuda_ms(cudnn_call(x, x2, w, scale, bias, residual), iters)
+    extra = {}
+    if variant == "wgmma":  # the direct kernel on the same call, for scale
+        extra = dict(
+            direct_ms=cuda_ms(lambda: kconv.conv3x3_bn_relu_direct(
+                x, w, scale, bias, True, residual, x2), iters)[0],
+            tile_th_bn=list(kconv.wgmma_tile(b, h, h, c1 + c2, co)),
+            grid=list(kconv.wgmma_grid(b, h, h, c1 + c2, co)))
     esz = x.element_size()
     flops = 2.0 * b * h * h * 9 * (c1 + c2) * co
     nbytes = esz * (x.numel() + (0 if x2 is None else x2.numel()) + w.numel()
                     + got.numel() + (0 if residual is None else
                                      residual.numel())) + 8 * co
+    bound = bound_ms(nbytes, flops, dtype)
     return dict(site=name, H=h, C1=c1, C2=c2, Co=co, residual=res, B=b,
-                dtype=str(dtype).split(".")[-1],
+                dtype=str(dtype).split(".")[-1], variant=variant,
                 max_abs_err=float(diff.max()), tol_rtol_atol=[rtol, atol],
-                ms=kern, plain_ms=plain, library_ms=lib, gflop=flops / 1e9,
-                **bound_ms(nbytes, flops, dtype))
+                ms=kern, host_ms=host, plain_ms=plain, library_ms=lib,
+                gflop=flops / 1e9,
+                tflops=flops / kern / 1e9,
+                share_of_bound=bound["bound_ms"] / kern, **extra, **bound)
 
 
 def check_conv(kconv, gen) -> list[dict]:
-    rows = [conv_case(kconv, *site[:6], torch.bfloat16, 6, gen)
-            for site in CONV_SITES]
+    """The wgmma kernel at every call site at both production batches (its
+    tile, and so its template instance and grid, depends on the batch),
+    the direct kernel at an fp32 and a ragged-channel shape."""
+    rows = [conv_case(kconv, *site[:6], torch.bfloat16, b, gen)
+            for b in PRODUCTION_B for site in CONV_SITES]
     rows.append(conv_case(kconv, "layer1 conv+res fp32", 56, 64, 0, 64,
                           True, torch.float32, 6, gen))
+    rows.append(conv_case(kconv, "ragged 96+32->70 bf16", 28, 96, 32, 70,
+                          False, torch.bfloat16, 6, gen))
+    return rows
+
+
+def conv_per_step(rows: list[dict], b: int) -> dict:
+    """The 16 fused calls of one bf16 step at batch b, summed by call
+    site."""
+    per_step = {s[0]: s[6] for s in CONV_SITES}
+    sites = [r for r in rows if r["B"] == b and r["dtype"] == "bfloat16"
+             and r["site"] in per_step]
+    t = {k: sum(r[k] * per_step[r["site"]] for r in sites)
+         for k in ("ms", "host_ms", "direct_ms", "plain_ms", "library_ms",
+                   "bound_ms", "bytes_ms", "ops_ms")}
+    return dict(phase="conv_per_step", B=b, dtype="bfloat16", **t,
+                below_library=t["ms"] < t["library_ms"],
+                sites_slower_than_library=[r["site"] for r in sites
+                                           if r["ms"] > r["library_ms"]])
+
+
+def sweep_tiles(kconv, gen) -> list[dict]:
+    """(``--sweep-tiles``) The wgmma kernel's device ms with each tile of
+    ``WGMMA_TILES`` no wider than Co, at every distinct call site and
+    production batch, beside cuDNN's ms and the tile that ``wgmma_tile``
+    picks."""
+    rows, seen = [], set()
+    for b in PRODUCTION_B:
+        for name, h, c1, c2, co, res, _ in CONV_SITES:
+            if (b, h, c1, c2, co, res) in seen:
+                continue
+            seen.add((b, h, c1, c2, co, res))
+            x, x2, w, scale, bias, r = conv_operands(
+                h, c1, c2, co, res, torch.bfloat16, b, gen)
+            wp = kconv.pack_weight(w)
+            times = {str(t): cuda_ms(
+                lambda t=t: kconv.conv3x3_bn_relu_wgmma(
+                    x, wp, scale, bias, True, r, x2, tile=t), 20)[0]
+                for t in kconv.WGMMA_TILES if t[1] <= max(co, 64)}
+            rows.append(dict(
+                phase="sweep_tiles", B=b, site=name,
+                library_ms=cuda_ms(cudnn_call(x, x2, w, scale, bias, r),
+                                   20)[0],
+                pick=str(kconv.wgmma_tile(b, h, h, c1 + c2, co)),
+                ms_by_tile=times))
     return rows
 
 
@@ -232,7 +344,8 @@ def drive_production(policy, b: int, ksplat, kconv) -> dict:
     obs = [eng.batch_obs(wall_obs(b, math.radians(15 * k), gen))
            for k in range(spin)]
     ksplat.splat_max.launches = 0
-    kconv.conv3x3_bn_relu.launches = 0
+    kconv.conv3x3_bn_relu_wgmma.launches = 0
+    kconv.conv3x3_bn_relu_direct.launches = 0
     counts, first_ego = [], None
     for k in range(spin):
         masks = np.zeros((b, 1)) if k in (0, spin - 1) else np.ones((b, 1))
@@ -241,27 +354,31 @@ def drive_production(policy, b: int, ksplat, kconv) -> dict:
         if k == 0:
             first_ego = ego
     # timed steady state: the same drive, host clock around synchronized
-    # steps with the observations already on the card
-    warm, timed = 2, 8
+    # rounds of steps with the observations already on the card; the step
+    # is the host's and spreads, so the median round and the range
+    warm, rounds, per_round = 2, 5, 8
     for k in range(warm):
         eng.update_map(obs[k % spin], np.ones((b, 1)))
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for k in range(timed):
-        eng.update_map(obs[k % spin], np.ones((b, 1)))
-    torch.cuda.synchronize()
-    ms = (time.perf_counter() - t0) * 1e3 / timed
+    round_ms = []
+    for _ in range(rounds):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for k in range(per_round):
+            eng.update_map(obs[k % spin], np.ones((b, 1)))
+        torch.cuda.synchronize()
+        round_ms.append((time.perf_counter() - t0) * 1e3 / per_round)
+    ms = float(np.median(round_ms))
     launches = {"splat_max": ksplat.splat_max.launches,
-                "conv3x3_bn_relu": kconv.conv3x3_bn_relu.launches}
-    steps = spin + warm + timed
+                **conv_launches(kconv)}
+    steps = spin + warm + rounds * per_round
 
     # checks: launches, shapes, the wall, the ring, the reset
     if launches["splat_max"] != steps:
         raise AssertionError(f"B={b}: splat launched {launches} times, "
                              f"expected {steps}")
-    if launches["conv3x3_bn_relu"] != 16 * steps:
-        raise AssertionError(f"B={b}: conv launched {launches} times, "
-                             f"expected {16 * steps}")
+    if launches["conv_wgmma"] != 16 * steps or launches["conv_direct"]:
+        raise AssertionError(f"B={b}: conv launches {launches}, expected "
+                             f"{16 * steps} wgmma and 0 direct")
     if first_ego.shape != (b, EGO, EGO, C) or first_ego.dtype != torch.float32:
         raise AssertionError(f"ego map {first_ego.shape} {first_ego.dtype}")
     if not bool(torch.isfinite(first_ego).all()):
@@ -283,7 +400,9 @@ def drive_production(policy, b: int, ksplat, kconv) -> dict:
     return dict(phase="slice", mode="bf16+rotate_in_splat", B=b,
                 steps=steps, launches=launches, wall_row=wall_row,
                 wall_cols=[cols[0], cols[-1]], ring_cells=counts,
-                ms_per_step=ms, frames_per_s=b * 1e3 / ms,
+                ms_per_step=ms, ms_per_step_range=[min(round_ms),
+                                                   max(round_ms)],
+                frames_per_s=b * 1e3 / ms,
                 peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
 
 
@@ -297,7 +416,8 @@ def parity_fp32(policy, ksplat, kconv) -> dict:
     cpu = RolloutEngine(policy, b, device="cpu")
     gen = np.random.RandomState(7)
     ksplat.splat_max.launches = 0
-    kconv.conv3x3_bn_relu.launches = 0
+    kconv.conv3x3_bn_relu_wgmma.launches = 0
+    kconv.conv3x3_bn_relu_direct.launches = 0
     worst = 0.0
     for k in range(steps):
         raw = wall_obs(b, 0.4 * k - 0.3, gen)
@@ -326,15 +446,21 @@ def parity_fp32(policy, ksplat, kconv) -> dict:
     if ksplat.splat_max.launches != steps:
         raise AssertionError(f"fp32: splat launches "
                              f"{ksplat.splat_max.launches} != {steps}")
-    if kconv.conv3x3_bn_relu.launches != 0:
-        raise AssertionError("fp32 parity mode must keep the library conv")
+    launches = {"splat_max": ksplat.splat_max.launches,
+                **conv_launches(kconv)}
+    if launches["conv_wgmma"] or launches["conv_direct"]:
+        raise AssertionError(f"fp32 parity mode must keep the library conv: "
+                             f"{launches}")
     return dict(phase="fp32_parity", B=b, steps=steps,
-                max_err_over_range=worst,
-                launches={"splat_max": ksplat.splat_max.launches,
-                          "conv3x3_bn_relu": kconv.conv3x3_bn_relu.launches})
+                max_err_over_range=worst, launches=launches)
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--sweep-tiles", action="store_true",
+                    help="also time the wgmma conv with every tile at every "
+                         "call site (phase 2b')")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -370,11 +496,18 @@ def main() -> int:
     emit(dict(phase="kernels", kernel="splat_max", cases=splat_rows))
     conv_rows = check_conv(kconv, gen)
     emit(dict(phase="kernels", kernel="conv3x3_bn_relu", cases=conv_rows))
+    conv_t = {}
+    for b in PRODUCTION_B:
+        conv_t[b] = conv_per_step(conv_rows, b)
+        emit(conv_t[b])
+    if args.sweep_tiles:
+        for row in sweep_tiles(kconv, gen):
+            emit(row)
 
     # phase 3: the slice at full width, production mode
     policy = random_policy(0, rotate_in_splat=True)
     slice_rows = [drive_production(policy, b, ksplat, kconv)
-                  for b in (6, 24)]
+                  for b in PRODUCTION_B]
     for r in slice_rows:
         emit(r)
 
@@ -382,36 +515,46 @@ def main() -> int:
     emit(parity_fp32(random_policy(1, rotate_in_splat=False), ksplat, kconv))
 
     # the kernels line: launches from the main-path runs of phase 3; times
-    # for one B=6 bf16 step (splat once, the 16 fused convs by call site)
+    # for one B=6 bf16 step (splat once, the 16 fused convs by call site);
+    # the direct conv is off the main path and timed at the fp32 site
     sp = splat_rows[1]
-    per_step = {s[0]: s[6] for s in CONV_SITES}
-    bf16_conv = [r for r in conv_rows if r["dtype"] == "bfloat16"]
+    conv6 = conv_t[6]
+    direct = next(r for r in conv_rows if r["dtype"] == "float32")
 
-    def conv_sum(key):
-        return sum(r[key] * per_step[r["site"]] for r in bf16_conv)
+    def launched(key):
+        return sum(r["launches"][key] for r in slice_rows)
 
-    conv_t = {k: conv_sum(k) for k in ("ms", "plain_ms", "library_ms",
-                                       "bound_ms", "bytes_ms", "ops_ms")}
+    def bound_by(ops_ms, bytes_ms):
+        return "operations" if ops_ms >= bytes_ms else "bytes"
+
     emit({"kernels": [
         {"name": "splat_max", "route": "cuda",
          "source": "ws_mgmap_tpu_torch/ops/kernels/csrc/splat.cu",
          "replaces": "ws_mgmap_tpu/ops/pallas/splat.py:193",
-         "launches": sum(r["launches"]["splat_max"] for r in slice_rows),
+         "launches": launched("splat_max"),
          "max_abs_err": max(r["max_abs_err"] for r in splat_rows),
          "ms": sp["ms"], "plain_ms": sp["plain_ms"],
          "bound_ms": sp["bound_ms"], "bound_by": sp["bound_by"],
          "library_ms": sp["library_ms"]},
-        {"name": "conv3x3_bn_relu", "route": "cuda",
+        {"name": "conv3x3_bn_relu_wgmma", "route": "cuda",
+         "source": "ws_mgmap_tpu_torch/ops/kernels/csrc/conv3x3_wgmma.cu",
+         "replaces": "ws_mgmap_tpu/ops/pallas/conv.py:113",
+         "launches": launched("conv_wgmma"),
+         "max_abs_err": max(r["max_abs_err"] for r in conv_rows
+                            if r["variant"] == "wgmma"),
+         "ms": conv6["ms"], "plain_ms": conv6["plain_ms"],
+         "bound_ms": conv6["bound_ms"],
+         "bound_by": bound_by(conv6["ops_ms"], conv6["bytes_ms"]),
+         "library_ms": conv6["library_ms"]},
+        {"name": "conv3x3_bn_relu_direct", "route": "cuda",
          "source": "ws_mgmap_tpu_torch/ops/kernels/csrc/conv3x3.cu",
          "replaces": "ws_mgmap_tpu/ops/pallas/conv.py:113",
-         "launches": sum(r["launches"]["conv3x3_bn_relu"]
-                         for r in slice_rows),
-         "max_abs_err": max(r["max_abs_err"] for r in conv_rows),
-         "ms": conv_t["ms"], "plain_ms": conv_t["plain_ms"],
-         "bound_ms": conv_t["bound_ms"],
-         "bound_by": ("operations" if conv_t["ops_ms"] >= conv_t["bytes_ms"]
-                      else "bytes"),
-         "library_ms": conv_t["library_ms"]},
+         "launches": launched("conv_direct"),
+         "max_abs_err": max(r["max_abs_err"] for r in conv_rows
+                            if r["variant"] == "direct"),
+         "ms": direct["ms"], "plain_ms": direct["plain_ms"],
+         "bound_ms": direct["bound_ms"], "bound_by": direct["bound_by"],
+         "library_ms": direct["library_ms"]},
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

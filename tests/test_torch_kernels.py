@@ -26,6 +26,50 @@ def cuda():
     torch.backends.cudnn.allow_tf32 = allow
 
 
+def _conv_launches():
+    return (kconv.conv3x3_bn_relu_wgmma.launches,
+            kconv.conv3x3_bn_relu_direct.launches)
+
+
+# (H, C1, C2, Co) of the 12 fused call sites of the UNet at width 1
+WIDTH1_SITES = [(224, 64, 0, 64), (224, 128, 64, 64), (112, 256, 64, 128),
+                (56, 256, 64, 256), (28, 512, 128, 256), (14, 512, 256, 512),
+                (56, 64, 0, 64), (56, 64, 0, 64), (28, 128, 0, 128),
+                (28, 128, 0, 128), (14, 256, 0, 256), (14, 256, 0, 256)]
+# (C1, C2, Co) that only the direct kernel takes
+RAGGED = [(8, 0, 16), (5, 0, 7), (96, 32, 70), (64, 0, 130), (64, 32, 64),
+          (32, 0, 64)]
+
+
+@pytest.mark.parametrize("site", WIDTH1_SITES)
+def test_dispatch_sends_width1_bf16_sites_to_wgmma(site):
+    h, c1, c2, co = site
+    assert kconv.conv_variant(torch.bfloat16, c1, c2, co) == "wgmma"
+    assert kconv.conv_variant(torch.float32, c1, c2, co) == "direct"
+    th, bn = kconv.wgmma_tile(6, h, h, c1 + c2, co)
+    assert (th, bn) in kconv.WGMMA_TILES and bn <= co
+    grid = kconv.wgmma_grid(6, h, h, c1 + c2, co)
+    assert grid[0] * th * kconv.TILE_W >= h * h
+    assert grid[1] * bn >= co and grid[2] == 6
+    # enough blocks for most of the 132 SMs even at 14x14
+    assert grid[0] * grid[1] * grid[2] >= kconv.MIN_BLOCKS
+
+
+@pytest.mark.parametrize("shape", RAGGED)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dispatch_sends_ragged_channels_to_direct(shape, dtype):
+    assert kconv.conv_variant(dtype, *shape) == "direct"
+
+
+def test_pack_weight_roundtrip():
+    w = torch.randn(3, 3, 20, 12)
+    p = kconv.pack_weight(w)
+    assert p.shape == (9 * 12, 20) and p.is_contiguous()
+    # row (dx*3 + dy)*Co + co holds w[dy, dx, :, co]
+    assert torch.equal(p[(2 * 3 + 1) * 12 + 5], w[1, 2, :, 5])
+    assert torch.equal(kconv.unpack_weight(p), w)
+
+
 def _splat_inputs(rng, b, p, c):
     feats = (rng.randn(b, p, c) * 2.0).astype(np.float32)
     ids = rng.randint(0, EGO * EGO, (b, p)).astype(np.int32)
@@ -54,11 +98,14 @@ def test_cpu_tensors_take_the_twins_without_counting():
                        ksplat.splat_max_plain(feats, ids, EGO))
     x = torch.randn(1, 8, 8, 4)
     w, s, b = torch.randn(3, 3, 4, 5), torch.ones(5), torch.zeros(5)
-    cbefore = kconv.conv3x3_bn_relu.launches
+    cbefore = _conv_launches()
     assert torch.equal(kconv.conv3x3_bn_relu(x, w, s, b),
                        kconv.conv3x3_bn_relu_plain(x, w, s, b))
+    for variant, wrapper in kconv.KERNELS.items():
+        assert torch.equal(wrapper(x, kconv.kernel_weight(w, variant), s, b),
+                           kconv.conv3x3_bn_relu_plain(x, w, s, b))
     assert ksplat.splat_max.launches == before
-    assert kconv.conv3x3_bn_relu.launches == cbefore
+    assert _conv_launches() == cbefore
 
 
 def test_conv_rejects_residual_with_x2():
@@ -111,10 +158,11 @@ def test_conv_kernel_matches_twin(cuda, shape, dtype):
     k = rnd(3, 3, c1 + c2, co, scale=0.1).to(dtype)
     s, bb = rnd(co).abs() + 0.5, rnd(co, scale=0.1)
     res = None if c2 else rnd(b, h, w, co).to(dtype)
-    before = kconv.conv3x3_bn_relu.launches
+    wg, direct = _conv_launches()
     got = kconv.conv3x3_bn_relu(x, k, s, bb, relu=True, residual=res, x2=x2)
     torch.cuda.synchronize()
-    assert kconv.conv3x3_bn_relu.launches == before + 1
+    # ragged channels and fp32 take the direct kernel
+    assert _conv_launches() == (wg, direct + 1)
     want = kconv.conv3x3_bn_relu_plain(x, k, s, bb, relu=True, residual=res,
                                        x2=x2)
     # both sum in fp32 in different orders; bf16 outputs may then round
@@ -135,3 +183,93 @@ def test_conv_kernel_rejects_bad_operands(cuda):
         kconv.conv3x3_bn_relu(x.permute(0, 2, 1, 3), w, s, b)
     with pytest.raises(TypeError):
         kconv.conv3x3_bn_relu(x.half(), w.half(), s, b)
+
+
+# (B, H, W, C1, C2, Co, residual, relu): edge-heavy H/W (14, 28, 56, and
+# sizes that are no multiple of the tile), Co > 256 (several N tiles),
+# Co not a multiple of the N tile, an x/x2 split, residuals, relu=False,
+# B > 1, a box wider than the image
+WGMMA_CASES = [
+    (2, 14, 14, 64, 0, 64, False, True),
+    (3, 28, 28, 128, 0, 128, True, True),
+    (2, 56, 56, 64, 0, 64, True, False),
+    (1, 20, 36, 64, 64, 128, False, True),
+    (2, 14, 14, 256, 256, 512, False, True),
+    (2, 13, 22, 128, 0, 320, True, True),
+    (2, 16, 16, 64, 0, 72, False, False),
+    (1, 6, 5, 64, 64, 64, False, True),
+    (6, 112, 112, 64, 0, 256, False, True),
+]
+
+
+def _wgmma_operands(cuda, b, h, w, c1, c2, co, res):
+    g = torch.Generator(device=cuda).manual_seed(b * 1000 + h * 10 + co)
+
+    def rnd(*s, scale=1.0):
+        return torch.randn(*s, generator=g, device=cuda) * scale
+
+    x = rnd(b, h, w, c1).bfloat16()
+    x2 = rnd(b, h, w, c2).bfloat16() if c2 else None
+    k = rnd(3, 3, c1 + c2, co, scale=(9 * (c1 + c2)) ** -0.5).bfloat16()
+    s, bb = rnd(co).abs() + 0.5, rnd(co, scale=0.1)
+    r = rnd(b, h, w, co).bfloat16() if res else None
+    return x, x2, k, s, bb, r
+
+
+def _check_wgmma(cuda, case):
+    b, h, w, c1, c2, co, res, relu = case
+    x, x2, k, s, bb, r = _wgmma_operands(cuda, b, h, w, c1, c2, co, res)
+    wg, direct = _conv_launches()
+    got = kconv.conv3x3_bn_relu(x, k, s, bb, relu=relu, residual=r, x2=x2)
+    torch.cuda.synchronize()
+    assert _conv_launches() == (wg + 1, direct)
+    want = kconv.conv3x3_bn_relu_plain(x, k, s, bb, relu=relu, residual=r,
+                                       x2=x2)
+    # both sum in fp32 in different orders; the bf16 outputs may then
+    # round one bf16 ulp (2^-7 relative) apart
+    torch.testing.assert_close(got.float(), want.float(), rtol=2**-7,
+                               atol=1e-3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", WGMMA_CASES)
+def test_conv_wgmma_matches_twin(cuda, case):
+    _check_wgmma(cuda, case)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tile", kconv.WGMMA_TILES)
+@pytest.mark.parametrize("case", [(2, 20, 36, 64, 64, 264, False, True),
+                                  (1, 17, 30, 128, 0, 264, True, False)])
+def test_conv_wgmma_every_tile_matches_twin(cuda, monkeypatch, tile, case):
+    monkeypatch.setattr(kconv, "wgmma_tile", lambda *a: tile)
+    _check_wgmma(cuda, case)
+
+
+@pytest.mark.gpu
+def test_conv_wgmma_takes_packed_weights(cuda):
+    x, _, k, s, bb, r = _wgmma_operands(cuda, 2, 28, 28, 64, 0, 128, True)
+    got = kconv.conv3x3_bn_relu_wgmma(x, kconv.pack_weight(k), s, bb,
+                                      residual=r)
+    assert torch.equal(got, kconv.conv3x3_bn_relu(x, k, s, bb, residual=r))
+
+
+@pytest.mark.gpu
+def test_conv_wgmma_rejects_what_it_does_not_take(cuda):
+    x, _, k, s, bb, _ = _wgmma_operands(cuda, 1, 16, 16, 64, 0, 64, False)
+    wp = kconv.pack_weight(k)
+    before = _conv_launches()
+    with pytest.raises(TypeError):  # fp32: no silent TF32
+        kconv.conv3x3_bn_relu_wgmma(x.float(), wp.float(), s, bb)
+    with pytest.raises(ValueError):  # ragged channels
+        kconv.conv3x3_bn_relu_wgmma(x[..., :32].contiguous(),
+                                    wp[:, :32].contiguous(), s, bb)
+    shifted = torch.empty(x.numel() + 1, dtype=x.dtype, device=cuda)
+    shifted[1:] = x.flatten()
+    with pytest.raises(ValueError):  # 2 bytes off TMA's 16-byte alignment
+        kconv.conv3x3_bn_relu_wgmma(shifted[1:].view(x.shape), wp, s, bb)
+    with pytest.raises(ValueError):  # HWIO where packed is expected
+        kconv.conv3x3_bn_relu_wgmma(x, k, s, bb)
+    with pytest.raises(ValueError):  # a tile the kernel has no instance of
+        kconv.conv3x3_bn_relu_wgmma(x, wp, s, bb, tile=(32, 64))
+    assert _conv_launches() == before

@@ -6,6 +6,8 @@ kernel reads ``x.permute(0, 2, 3, 1)`` as a contiguous NHWC tensor.
 """
 from __future__ import annotations
 
+import weakref
+
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
@@ -33,15 +35,53 @@ def nhwc(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 2, 3, 1).contiguous()
 
 
+def _source_key(t: torch.Tensor | None):
+    """What identifies a source tensor's contents: its storage (a weak
+    reference, alive only as long as the storage, so a freed block that
+    the allocator hands out again never matches), where the tensor lies in
+    it, its dtype and its version counter."""
+    if t is None:
+        return None
+    return (weakref.ref(t.untyped_storage()), t.storage_offset(), t.dtype,
+            tuple(t.shape), t._version)
+
+
+def fused_operands(conv: nn.Conv2d, bn: nn.BatchNorm2d, dtype: torch.dtype,
+                   variant: str
+                   ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(scale, bias, weight) of the fused kernel ``variant`` for this conv
+    and BN: BN folded in fp32 from the statistics as stored (the engine's
+    cast ones), the weight in ``dtype`` and in the layout of the variant's
+    kernel (:func:`kconv.kernel_weight`). Built once and cached on
+    ``conv``, keyed by :func:`_source_key` of every source tensor, so
+    ``load_state_dict``, ``.to()`` and an in-place edit all rebuild it."""
+    srcs = (conv.weight, conv.bias, bn.weight, bn.bias, bn.running_mean,
+            bn.running_var)
+    key = (dtype, variant, bn.eps) + tuple(_source_key(t) for t in srcs)
+    cached = getattr(conv, "_fused_cache", None)
+    if cached is None or cached[0] != key:
+        with torch.no_grad():
+            scale, bias = kconv.fold_bn(conv.bias, bn.weight, bn.bias,
+                                        bn.running_mean, bn.running_var,
+                                        bn.eps)
+            w = kconv.kernel_weight(conv.weight.permute(2, 3, 1, 0).to(dtype),
+                                    variant)
+        cached = (key, (scale, bias, w))
+        conv._fused_cache = cached
+    return cached[1]
+
+
 def fused_conv_bn(x: torch.Tensor, conv: nn.Conv2d, bn: nn.BatchNorm2d,
                   relu: bool, residual: torch.Tensor | None = None,
                   x2: torch.Tensor | None = None) -> torch.Tensor:
     """conv -> frozen BN [-> + residual] [-> ReLU] through the fused 3x3
-    kernel: NCHW in, NCHW (channels_last) out."""
-    scale, bias = kconv.fold_bn(conv.bias, bn.weight, bn.bias,
-                                bn.running_mean, bn.running_var, bn.eps)
-    w = conv.weight.permute(2, 3, 1, 0).contiguous().to(x.dtype)
-    y = kconv.conv3x3_bn_relu(
+    kernel that :func:`kconv.conv_variant` picks, with the operands of
+    :func:`fused_operands`: NCHW in, NCHW (channels_last) out."""
+    variant = kconv.conv_variant(x.dtype, x.shape[1],
+                                 0 if x2 is None else x2.shape[1],
+                                 conv.out_channels)
+    scale, bias, w = fused_operands(conv, bn, x.dtype, variant)
+    y = kconv.KERNELS[variant](
         nhwc(x), w, scale, bias, relu=relu,
         residual=None if residual is None else nhwc(residual),
         x2=None if x2 is None else nhwc(x2))

@@ -33,7 +33,10 @@ SIGNATURES = {
     "ws_splat_max_bf16": ([_VP] * 3 + [_INT] * 4 + [_VP], _INT),
     "ws_conv3x3_bn_act_f32": ([_VP] * 7 + [_INT] * 7 + [_VP], _INT),
     "ws_conv3x3_bn_act_bf16": ([_VP] * 7 + [_INT] * 7 + [_VP], _INT),
+    "ws_conv3x3_wgmma_bf16": ([_VP] * 7 + [_INT] * 9 + [_VP], _INT),
 }
+# csrc/status.cuh: a status from here on is this plus a CUresult
+TENSOR_MAP_ERROR = 10000
 
 _LIB: ctypes.CDLL | None = None
 build_seconds: float | None = None  # wall time of the last build, if any
@@ -124,8 +127,11 @@ def load_library() -> ctypes.CDLL:
 
 
 def check(status: int, what: str) -> None:
-    """Raise on a non-zero ``cudaError_t`` returned after a launch."""
+    """Raise on a non-zero status returned by a launch: a ``cudaError_t``
+    or a code of ``csrc/status.cuh``."""
     if status != 0:
         lib = load_library()
         msg = lib.ws_cuda_error_string(status).decode()
+        if status >= TENSOR_MAP_ERROR:
+            msg += f"; CUresult {status - TENSOR_MAP_ERROR}"
         raise RuntimeError(f"{what}: CUDA error {status} ({msg})")

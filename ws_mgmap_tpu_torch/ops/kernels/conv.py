@@ -1,17 +1,39 @@
-"""Fused 3x3 conv + folded BN (+ residual) (+ ReLU): wrapper, twin and gate.
+"""Fused 3x3 conv + folded BN (+ residual) (+ ReLU): wrappers, twin and gate.
 
 Port of ``ws_mgmap_tpu/ops/pallas/conv.py``: :func:`fold_bn`,
-:func:`conv3x3_bn_relu` (kernel ``csrc/conv3x3.cu``; plain twin
-:func:`conv3x3_bn_relu_plain`) and the gate that decides where the UNet
-uses it (:func:`fused_conv_eligible`, :func:`set_fused_conv_mode`,
-:func:`fused_conv_active`). All tensors are NHWC; weights are HWIO.
+:func:`conv3x3_bn_relu` (plain twin :func:`conv3x3_bn_relu_plain`) and the
+gate that decides where the UNet uses it (:func:`fused_conv_eligible`,
+:func:`set_fused_conv_mode`, :func:`fused_conv_active`). All tensors are
+NHWC; the public function and the twin take an HWIO ``[3, 3, Ci, Co]``
+weight, and each kernel's wrapper the layout of :func:`kernel_weight`.
+
+On the card two hand-written kernels compute it, chosen by shape
+(:func:`conv_variant`), each with its own launch count:
+
+- :func:`conv3x3_bn_relu_wgmma` (``csrc/conv3x3_wgmma.cu``): an implicit
+  GEMM on the bf16 tensor cores, fed by TMA, for bf16 with C1 and C2
+  multiples of 64 and Co a multiple of 8 (every UNet site at width 1);
+- :func:`conv3x3_bn_relu_direct` (``csrc/conv3x3.cu``): a direct conv in
+  fp32 FMA for fp32 (which the tensor cores would round to TF32) and
+  ragged channel counts.
+
+A wrapper runs the twin only for a CPU tensor; for a CUDA tensor it
+launches its kernel or raises.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
 
 from ws_mgmap_tpu_torch.ops.kernels import build
+
+NUM_SMS = 132  # H100 SXM
+TILE_W = 8  # the wgmma kernel's tile width in pixels
+# (TH, BN) tiles of the wgmma kernel; on equal L2 traffic the first wins
+WGMMA_TILES = ((16, 128), (8, 128), (16, 64), (8, 64))
+MIN_BLOCKS = 2 * NUM_SMS // 3  # a tile must keep two thirds of the SMs busy
 
 
 def fold_bn(conv_bias: torch.Tensor | None, gamma: torch.Tensor,
@@ -26,14 +48,27 @@ def fold_bn(conv_bias: torch.Tensor | None, gamma: torch.Tensor,
     return scale, bias
 
 
+def pack_weight(w: torch.Tensor) -> torch.Tensor:
+    """HWIO ``[3, 3, Ci, Co]`` -> ``[9*Co, Ci]``, K-major: row
+    ``(dx*3 + dy)*Co + co`` holds ``w[dy, dx, :, co]``, so the weight
+    tiles of the three dy taps of one dx lie in one TMA box."""
+    ci, co = w.shape[2], w.shape[3]
+    return w.permute(1, 0, 3, 2).reshape(9 * co, ci).contiguous()
+
+
+def unpack_weight(w: torch.Tensor) -> torch.Tensor:
+    """The inverse of :func:`pack_weight`."""
+    return w.reshape(3, 3, -1, w.shape[1]).permute(1, 0, 3, 2).contiguous()
+
+
 def conv3x3_bn_relu_plain(x: torch.Tensor, w: torch.Tensor,
                           scale: torch.Tensor, bias: torch.Tensor,
                           relu: bool = True,
                           residual: torch.Tensor | None = None,
                           x2: torch.Tensor | None = None) -> torch.Tensor:
-    """The kernel's arithmetic in plain PyTorch: ``F.conv2d`` over the
+    """The kernels' arithmetic in plain PyTorch: ``F.conv2d`` over the
     channel concat in fp32, ``* scale + bias``, ``+ residual``, ReLU, then
-    the input dtype."""
+    the input dtype. ``w`` is HWIO."""
     if x2 is not None:
         x = torch.cat([x, x2], dim=-1)
     y = F.conv2d(x.permute(0, 3, 1, 2).to(torch.float32),
@@ -47,6 +82,194 @@ def conv3x3_bn_relu_plain(x: torch.Tensor, w: torch.Tensor,
     return y.to(x.dtype)
 
 
+def conv_variant(dtype: torch.dtype, c1: int, c2: int, co: int) -> str:
+    """The dispatch rule for a CUDA tensor. "wgmma" for bf16 with C1 and
+    C2 (0 when there is no x2) multiples of 64 and Co a multiple of 8: a
+    64-channel K step then never straddles x and x2, and every TMA stride
+    is a multiple of 16 bytes. "direct" for everything else: fp32 and
+    ragged channel counts."""
+    if (dtype == torch.bfloat16 and c1 > 0 and c1 % 64 == 0
+            and c2 % 64 == 0 and co % 8 == 0):
+        return "wgmma"
+    return "direct"
+
+
+def kernel_weight(w_hwio: torch.Tensor, variant: str) -> torch.Tensor:
+    """An HWIO weight in the layout that ``variant``'s kernel takes:
+    packed (:func:`pack_weight`) for "wgmma", HWIO for "direct"."""
+    return pack_weight(w_hwio) if variant == "wgmma" else w_hwio.contiguous()
+
+
+def _blocks(b: int, h: int, w: int, co: int, tile) -> int:
+    th, bn = tile
+    return b * math.ceil(h / th) * math.ceil(w / TILE_W) * math.ceil(co / bn)
+
+
+def _l2_bytes(b: int, h: int, w: int, ci: int, co: int, tile) -> int:
+    """Bytes the blocks pull through L2 (bf16): every Co tile reads the
+    input once per dx, each band of TH rows with its two halo rows (what
+    lies outside the image is zero-filled, not read); every pixel tile
+    reads the weight slice of its Co tile."""
+    th, bn = tile
+    pixel_tiles = b * math.ceil(h / th) * math.ceil(w / TILE_W)
+    co_tiles = math.ceil(co / bn)
+    rows = h + 2 * math.ceil(h / th)
+    return 2 * ci * co_tiles * (3 * b * rows * w + 9 * pixel_tiles * bn)
+
+
+def wgmma_tile(b: int, h: int, w: int, ci: int, co: int
+               ) -> tuple[int, int]:
+    """(TH, BN) for the wgmma kernel: TH x 8 pixels x BN channels. The
+    kernel is bound by what it pulls through L2 (:func:`_l2_bytes`), so the
+    tile is the one of :data:`WGMMA_TILES`, no wider than Co, that pulls
+    the fewest bytes while launching at least :data:`MIN_BLOCKS` blocks;
+    where none launches that many (small images), the one that launches
+    the most."""
+    fits = [t for t in WGMMA_TILES if t[1] <= max(co, 64)]
+    busy = [t for t in fits if _blocks(b, h, w, co, t) >= MIN_BLOCKS]
+    if not busy:
+        return max(fits, key=lambda t: _blocks(b, h, w, co, t))
+    return min(busy, key=lambda t: _l2_bytes(b, h, w, ci, co, t))
+
+
+def wgmma_grid(b: int, h: int, w: int, ci: int, co: int
+               ) -> tuple[int, int, int]:
+    """The wgmma kernel's launch grid (pixel tiles, Co tiles, images)."""
+    th, bn = wgmma_tile(b, h, w, ci, co)
+    return (math.ceil(h / th) * math.ceil(w / TILE_W), math.ceil(co / bn), b)
+
+
+def _check(what: str, x, co: int, w_shape, w, scale, bias, residual, x2,
+           dtypes) -> None:
+    """Device, dtype, shape and contiguity of a launch's operands."""
+    if x.device.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {x.device}")
+    if x.dtype not in dtypes:
+        raise TypeError(f"{what}: x must be {' or '.join(map(str, dtypes))},"
+                        f" got {x.dtype}")
+    b, h, wd, _ = x.shape
+    for name, t in [("w", w)] + [(n, t) for n, t in (("x2", x2),
+                                                     ("residual", residual))
+                                 if t is not None]:
+        if t.dtype != x.dtype or t.device != x.device:
+            raise TypeError(f"{what}: {name} is {t.dtype} on {t.device}, x "
+                            f"is {x.dtype} on {x.device}")
+    for name, t in (("scale", scale), ("bias", bias)):
+        if (t.dtype != torch.float32 or t.device != x.device
+                or tuple(t.shape) != (co,)):
+            raise TypeError(f"{what}: {name} must be fp32 [{co}] on "
+                            f"{x.device}")
+    if tuple(w.shape) != tuple(w_shape):
+        raise ValueError(f"{what}: w {tuple(w.shape)} != {tuple(w_shape)}")
+    if x2 is not None and tuple(x2.shape[:3]) != (b, h, wd):
+        raise ValueError(f"{what}: x2 {tuple(x2.shape)} vs x "
+                         f"{tuple(x.shape)}")
+    if residual is not None and tuple(residual.shape) != (b, h, wd, co):
+        raise ValueError(f"{what}: residual {tuple(residual.shape)} != "
+                         f"{(b, h, wd, co)}")
+    tensors = [x, w, scale, bias] + [t for t in (x2, residual)
+                                     if t is not None]
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{what}: all operands must be contiguous "
+                         "(NHWC / HWIO / packed)")
+
+
+def _launch(fn_name: str, what: str, x, w, scale, bias, relu, residual, x2,
+            co: int, *tile: int) -> torch.Tensor:
+    b, h, wd, c1 = x.shape
+    c2 = 0 if x2 is None else x2.shape[-1]
+    out = torch.empty((b, h, wd, co), dtype=x.dtype, device=x.device)
+    fn = getattr(build.load_library(), fn_name)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        status = fn(x.data_ptr(), None if x2 is None else x2.data_ptr(),
+                    w.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+                    None if residual is None else residual.data_ptr(),
+                    out.data_ptr(), b, h, wd, c1, c2, co, int(relu), *tile,
+                    stream)
+    build.check(status, what)
+    return out
+
+
+def conv3x3_bn_relu_wgmma(x: torch.Tensor, w: torch.Tensor,
+                          scale: torch.Tensor, bias: torch.Tensor,
+                          relu: bool = True,
+                          residual: torch.Tensor | None = None,
+                          x2: torch.Tensor | None = None,
+                          tile: tuple[int, int] | None = None
+                          ) -> torch.Tensor:
+    """The tensor-core kernel ``csrc/conv3x3_wgmma.cu``: bf16 operands, w
+    packed ``[9*Co, C1+C2]``, shapes that :func:`conv_variant` sends to
+    "wgmma", every pointer 16-byte aligned (TMA's rule). ``tile`` (TH, BN)
+    overrides :func:`wgmma_tile`'s pick. Raises on anything else; a CPU
+    tensor takes the twin."""
+    what = "conv3x3_bn_relu_wgmma"
+    if residual is not None and x2 is not None:
+        raise ValueError(f"{what}: residual and x2 are never combined")
+    if x.device.type == "cpu":
+        return conv3x3_bn_relu_plain(x, unpack_weight(w), scale, bias, relu,
+                                     residual, x2)
+    if w.dim() != 2:
+        raise ValueError(f"{what}: w must be packed [9*Co, Ci], got "
+                         f"{tuple(w.shape)}")
+    c1 = x.shape[-1]
+    c2 = 0 if x2 is None else x2.shape[-1]
+    co = w.shape[0] // 9
+    _check(what, x, co, (9 * co, c1 + c2), w, scale, bias, residual, x2,
+           (torch.bfloat16,))
+    if conv_variant(x.dtype, c1, c2, co) != "wgmma":
+        raise ValueError(f"{what}: C1={c1}, C2={c2}, Co={co} are not "
+                         "multiples of 64, 64 and 8")
+    for name, t in (("x", x), ("x2", x2), ("w", w), ("residual", residual),
+                    ("scale", scale), ("bias", bias)):
+        if t is not None and t.data_ptr() % 16:
+            raise ValueError(f"{what}: {name} is not 16-byte aligned "
+                             "(TMA needs it)")
+    if tile is None:
+        b, h, wd, _ = x.shape
+        tile = wgmma_tile(b, h, wd, c1 + c2, co)
+    elif tuple(tile) not in WGMMA_TILES:
+        raise ValueError(f"{what}: tile {tile} is not one of {WGMMA_TILES}")
+    out = _launch("ws_conv3x3_wgmma_bf16", what, x, w, scale, bias, relu,
+                  residual, x2, co, *tile)
+    conv3x3_bn_relu_wgmma.launches += 1
+    return out
+
+
+conv3x3_bn_relu_wgmma.launches = 0
+
+
+def conv3x3_bn_relu_direct(x: torch.Tensor, w: torch.Tensor,
+                           scale: torch.Tensor, bias: torch.Tensor,
+                           relu: bool = True,
+                           residual: torch.Tensor | None = None,
+                           x2: torch.Tensor | None = None) -> torch.Tensor:
+    """The direct FMA kernel ``csrc/conv3x3.cu``: fp32 or bf16, w HWIO,
+    any channel counts. A CPU tensor takes the twin."""
+    what = "conv3x3_bn_relu_direct"
+    if residual is not None and x2 is not None:
+        raise ValueError(f"{what}: residual and x2 are never combined")
+    if x.device.type == "cpu":
+        return conv3x3_bn_relu_plain(x, w, scale, bias, relu, residual, x2)
+    fns = {torch.float32: "ws_conv3x3_bn_act_f32",
+           torch.bfloat16: "ws_conv3x3_bn_act_bf16"}
+    c1 = x.shape[-1]
+    c2 = 0 if x2 is None else x2.shape[-1]
+    co = w.shape[-1]
+    _check(what, x, co, (3, 3, c1 + c2, co), w, scale, bias, residual, x2,
+           tuple(fns))
+    out = _launch(fns[x.dtype], what, x, w, scale, bias, relu, residual, x2,
+                  co)
+    conv3x3_bn_relu_direct.launches += 1
+    return out
+
+
+conv3x3_bn_relu_direct.launches = 0
+
+# the wrapper of each variant of :func:`conv_variant`
+KERNELS = {"wgmma": conv3x3_bn_relu_wgmma, "direct": conv3x3_bn_relu_direct}
+
+
 def conv3x3_bn_relu(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
                     bias: torch.Tensor, relu: bool = True,
                     residual: torch.Tensor | None = None,
@@ -54,65 +277,22 @@ def conv3x3_bn_relu(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
     """y = [relu](conv3x3_same_s1(concat([x, x2]), w) * scale + bias
     [+ residual]), NHWC.
 
-    x [B,H,W,C1] and optional x2 [B,H,W,C2] (bf16 or fp32), w
-    [3,3,C1+C2,Co] HWIO in x's dtype, scale/bias [Co] fp32, optional
-    residual [B,H,W,Co]. A CUDA tensor launches ``csrc/conv3x3.cu``; a CPU
-    tensor takes :func:`conv3x3_bn_relu_plain`.
+    x [B,H,W,C1] and optional x2 [B,H,W,C2] (bf16 or fp32), w HWIO
+    [3,3,C1+C2,Co] in x's dtype, scale/bias [Co] fp32, optional residual
+    [B,H,W,Co]. A CUDA tensor launches the kernel that :func:`conv_variant`
+    names, with the weight re-laid by :func:`kernel_weight` on every call
+    (a caller that repeats a weight prepares it once and calls
+    :data:`KERNELS` itself); a CPU tensor takes
+    :func:`conv3x3_bn_relu_plain`.
     """
     if residual is not None and x2 is not None:
         raise ValueError("conv3x3_bn_relu: residual and x2 are never combined")
     if x.device.type == "cpu":
         return conv3x3_bn_relu_plain(x, w, scale, bias, relu, residual, x2)
-    if x.device.type != "cuda":
-        raise ValueError(f"conv3x3_bn_relu: unsupported device {x.device}")
-    fns = {torch.float32: "ws_conv3x3_bn_act_f32",
-           torch.bfloat16: "ws_conv3x3_bn_act_bf16"}
-    if x.dtype not in fns:
-        raise TypeError(f"conv3x3_bn_relu: x must be fp32 or bf16, got "
-                        f"{x.dtype}")
-    b, h, wd, c1 = x.shape
     c2 = 0 if x2 is None else x2.shape[-1]
-    co = w.shape[-1]
-    same_dtype = [("w", w)] + [(n, t) for n, t in (("x2", x2),
-                                                   ("residual", residual))
-                               if t is not None]
-    for name, t in same_dtype:
-        if t.dtype != x.dtype or t.device != x.device:
-            raise TypeError(f"conv3x3_bn_relu: {name} is {t.dtype} on "
-                            f"{t.device}, x is {x.dtype} on {x.device}")
-    for name, t in (("scale", scale), ("bias", bias)):
-        if (t.dtype != torch.float32 or t.device != x.device
-                or tuple(t.shape) != (co,)):
-            raise TypeError(f"conv3x3_bn_relu: {name} must be fp32 [{co}] on "
-                            f"{x.device}")
-    if tuple(w.shape) != (3, 3, c1 + c2, co):
-        raise ValueError(f"conv3x3_bn_relu: w {tuple(w.shape)} != "
-                         f"(3, 3, {c1 + c2}, {co})")
-    if x2 is not None and tuple(x2.shape[:3]) != (b, h, wd):
-        raise ValueError(f"conv3x3_bn_relu: x2 {tuple(x2.shape)} vs x "
-                         f"{tuple(x.shape)}")
-    if residual is not None and tuple(residual.shape) != (b, h, wd, co):
-        raise ValueError(f"conv3x3_bn_relu: residual {tuple(residual.shape)} "
-                         f"!= {(b, h, wd, co)}")
-    tensors = [x, w, scale, bias] + [t for t in (x2, residual)
-                                     if t is not None]
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("conv3x3_bn_relu: all operands must be contiguous "
-                         "(NHWC / HWIO)")
-    out = torch.empty((b, h, wd, co), dtype=x.dtype, device=x.device)
-    fn = getattr(build.load_library(), fns[x.dtype])
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        status = fn(x.data_ptr(), None if x2 is None else x2.data_ptr(),
-                    w.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-                    None if residual is None else residual.data_ptr(),
-                    out.data_ptr(), b, h, wd, c1, c2, co, int(relu), stream)
-    build.check(status, "conv3x3_bn_relu")
-    conv3x3_bn_relu.launches += 1
-    return out
-
-
-conv3x3_bn_relu.launches = 0
+    variant = conv_variant(x.dtype, x.shape[-1], c2, w.shape[-1])
+    return KERNELS[variant](x, kernel_weight(w, variant), scale, bias, relu,
+                            residual, x2)
 
 
 def fused_conv_eligible(x_shape, kernel: int, stride: int,

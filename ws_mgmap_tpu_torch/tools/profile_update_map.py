@@ -23,9 +23,12 @@ from ws_mgmap_tpu_torch.models.policy import BasePolicy
 from ws_mgmap_tpu_torch.tools.synthetic import random_policy, wall_obs
 from ws_mgmap_tpu_torch.train.rollout import RolloutEngine
 
-# kernel-name fragments -> group, first match wins
+# kernel-name fragments -> group, first match wins: the fused convs before
+# the library group, whose "conv" and "sm90" would also match their names
 GROUPS = [
-    ("fused conv3x3 (csrc/conv3x3.cu)", ("conv3x3_kernel",)),
+    ("fused conv3x3 wgmma (csrc/conv3x3_wgmma.cu)",
+     ("conv3x3_wgmma_kernel",)),
+    ("fused conv3x3 direct (csrc/conv3x3.cu)", ("conv3x3_kernel",)),
     ("splat (csrc/splat.cu)", ("scatter_max", "fill_neg_inf", "zero_eps")),
     ("library conv (cuDNN)", ("cudnn", "xmma", "conv", "implicit", "gemm",
                               "nchwToNhwc", "nhwcToNchw", "sm90")),
