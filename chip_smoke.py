@@ -1,14 +1,18 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/H100 port on one CUDA card.
 
-    python3 chip_smoke.py [--sweep-tiles]
+    python3 chip_smoke.py [--sweep-tiles] [--splat-ablation]
 
 Builds the port's CUDA kernels from ``ws_mgmap_tpu_torch/ops/kernels/csrc``
 (into ``build/ws_mgmap_tpu_torch/``), holds each kernel against its plain
-PyTorch twin at the main path's shapes and times both (the splat; the
-fused conv's wgmma kernel at every UNet call site at B=6 and B=24 and its
-direct kernel at an fp32 and a ragged-channel shape; with
-``--sweep-tiles`` also the wgmma kernel with every tile), then drives the
+PyTorch twin at the main path's shapes and times both (the splat on
+synthetic ids, on the ids of a B=6 and a B=24 step
+of the wall spin, and untimed on edge values: NaN, infinities, signed
+zeros; the fused conv's wgmma kernel at every UNet call site at B=6 and
+B=24 and its direct kernel at an fp32 and a ragged-channel shape; with
+``--sweep-tiles`` also the wgmma kernel with every tile; with
+``--splat-ablation`` also variants of the splat with a part taken out),
+then drives the
 map-update step (``RolloutEngine.update_map``) at full width: the
 ResNet18-UNet over 224^2 RGB, 256^2 depth, 100^2 ego and 240^2 global maps,
 random weights from a seed. Production mode (bf16 + rotate-in-splat) runs
@@ -24,6 +28,7 @@ file, the script fails.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import math
 import subprocess
@@ -110,37 +115,184 @@ def splat_inputs(b: int, dtype, gen: torch.Generator):
     return feats.contiguous(), ids
 
 
-def check_splat(ksplat, gen) -> list[dict]:
+def splat_exact(got: torch.Tensor, want: torch.Tensor, what: str) -> float:
+    """Exact equality with NaN in the same places; the max abs error (0)."""
+    nan = torch.isnan(want)
+    same = (got == want) | (nan & torch.isnan(got))
+    err = float(torch.where(same, 0.0, (got - want).abs()).max())
+    if not bool(same.all()):
+        raise AssertionError(f"splat {what}: max_abs_err {err} or NaN "
+                             "elsewhere, expected exact")
+    return err
+
+
+def wall_spin_splat_inputs(policy, b: int) -> tuple:
+    """The feats and ids that one production step of the wall spin hands
+    to ``splat_max`` (captured from ``project_egocentric``)."""
+    from ws_mgmap_tpu_torch.ops import projection
+    from ws_mgmap_tpu_torch.tools.synthetic import wall_obs
+    from ws_mgmap_tpu_torch.train.rollout import RolloutEngine
+
+    eng = RolloutEngine(policy, b, compute_dtype=torch.bfloat16)
+    obs = eng.batch_obs(wall_obs(b, math.radians(30), np.random.RandomState(b)))
+    seen, real = [], projection.splat_max
+
+    def capture(feats, ids, ego_size):
+        seen.append((feats.clone(), ids.clone()))
+        return real(feats, ids, ego_size)
+
+    projection.splat_max = capture
+    try:
+        eng.update_map(obs, np.zeros((b, 1)))
+    finally:
+        projection.splat_max = real
+    if len(seen) != 1:
+        raise AssertionError(f"one step splatted {len(seen)} times")
+    return seen[0]
+
+
+def splat_case(ksplat, name: str, feats, ids, timed: bool = True) -> dict:
+    """The kernel vs the twin (exact, NaN-aware), its cluster plan, then
+    the device times of the kernel, the twin and scatter_reduce_."""
+    b, p, c = feats.shape
+    got = ksplat.splat_max(feats, ids, EGO)
+    torch.cuda.synchronize()
+    err = splat_exact(got, ksplat.splat_max_plain(feats, ids, EGO), name)
+    plan = ksplat.splat_plan(EGO, c)
+    smem = ksplat.splat_smem_bytes(plan)
+    if smem != plan.smem_bytes:
+        raise AssertionError(f"splat plan: {plan.smem_bytes} bytes of shared "
+                             f"memory planned, the kernel takes {smem}")
+    row = dict(case=name, B=b, dtype=str(feats.dtype).split(".")[-1],
+               valid_share=float((ids >= 0).float().mean()),
+               max_abs_err=err, ranks=ksplat.RANKS, groups=plan.n_groups,
+               group=plan.group, smem_bytes=smem,
+               max_active_clusters=ksplat.splat_active_clusters(feats, ids,
+                                                                EGO))
+    if not timed:
+        return row
+    # the one PyTorch call that computes the scatter-max: amax
+    # scatter_reduce_ into a trash-row buffer (fp32 operands prepared)
+    idx = torch.where(ids < 0, EGO * EGO, ids).long()[:, :, None].expand(
+        b, p, c).contiguous()
+    f32 = feats.float()
+    buf = torch.empty(b, EGO * EGO + 1, c, device=feats.device)
+    lib, _ = cuda_ms(lambda: buf.fill_(float("-inf")).scatter_reduce_(
+        1, idx, f32, "amax", include_self=False), 10)
+    kern, host = cuda_ms(lambda: ksplat.splat_max(feats, ids, EGO), 20)
+    plain, _ = cuda_ms(lambda: ksplat.splat_max_plain(feats, ids, EGO), 10)
+    n_valid = int((ids >= 0).sum())
+    nbytes = (n_valid * c * feats.element_size() + ids.numel() * 4
+              + b * EGO * EGO * c * 4)
+    return dict(row, ms=kern, host_ms=host, plain_ms=plain, library_ms=lib,
+                **bound_ms(nbytes, n_valid * c, feats.dtype))
+
+
+def check_splat(ksplat, gen, policy) -> list[dict]:
+    """Four synthetic cases, the B=6 and B=24 steps of the wall spin, and
+    edge values (NaN, infinities, signed zeros, maxima <= -1e16)."""
+    from ws_mgmap_tpu_torch.tools.synthetic import special_splat_inputs
+
     rows = []
     for b, dtype in ((6, torch.float32), (6, torch.bfloat16),
                      (24, torch.bfloat16), (13, torch.bfloat16)):
         feats, ids = splat_inputs(b, dtype, gen)
-        got = ksplat.splat_max(feats, ids, EGO)
-        torch.cuda.synchronize()
-        want = ksplat.splat_max_plain(feats, ids, EGO)
-        err = float((got - want).abs().max())
-        if err != 0.0:
-            raise AssertionError(f"splat B={b} {dtype}: max_abs_err {err}, "
-                                 "expected exact")
-        # the one PyTorch call that computes the scatter-max: amax
-        # scatter_reduce_ into a trash-row buffer (fp32 operands prepared)
-        idx = torch.where(ids < 0, EGO * EGO, ids).long()[:, :, None].expand(
-            b, ids.shape[1], C).contiguous()
-        f32 = feats.float()
-        buf = torch.empty(b, EGO * EGO + 1, C, device=feats.device)
-        lib, _ = cuda_ms(lambda: buf.fill_(float("-inf")).scatter_reduce_(
-            1, idx, f32, "amax", include_self=False), 10)
-        kern, host = cuda_ms(lambda: ksplat.splat_max(feats, ids, EGO), 20)
-        plain, _ = cuda_ms(lambda: ksplat.splat_max_plain(feats, ids, EGO),
-                           10)
-        n_valid = int((ids >= 0).sum())
-        nbytes = (n_valid * C * feats.element_size() + ids.numel() * 4
-                  + b * EGO * EGO * C * 4)
-        rows.append(dict(B=b, dtype=str(dtype).split(".")[-1],
-                         valid_share=n_valid / ids.numel(),
-                         max_abs_err=err, ms=kern, host_ms=host,
-                         plain_ms=plain, library_ms=lib,
-                         **bound_ms(nbytes, n_valid * C, dtype)))
+        rows.append(splat_case(ksplat, "synthetic", feats, ids))
+    for b in PRODUCTION_B:
+        feats, ids = wall_spin_splat_inputs(policy, b)
+        rows.append(splat_case(ksplat, "wall spin", feats, ids))
+    feats, ids = special_splat_inputs(np.random.RandomState(3),
+                                      RGB_HW * RGB_HW, C, EGO)
+    for dtype in (torch.float32, torch.bfloat16):
+        rows.append(splat_case(
+            ksplat, "edge values", torch.from_numpy(feats).cuda().to(dtype),
+            torch.from_numpy(ids).cuda(), timed=False))
+    return rows
+
+
+# (name, [(text in csrc/splat.cu, its replacement)]): each variant takes a
+# part of the kernel out, computes a wrong result and is only timed
+SPLAT_ABLATIONS = [
+    # every atomic into the block's own keys, none over the cluster
+    ("local atomics", [("cg::this_cluster().map_shared_rank(keys, id % kRanks)",
+                        "keys")]),
+    # a plain store into the block's own keys in place of each atomic
+    ("plain stores", [(
+        "  uint32_t* dst = cg::this_cluster().map_shared_rank(keys, id % kRanks);\n"
+        "  atomicMax(dst + (id / kRanks) * group + lane, run);\n",
+        "  keys[(id / kRanks) * group + lane] = run;\n")]),
+    # no merge: zero, list, cluster barriers and the output write only
+    ("no merge", [("      merge_list<T>(list, n, fid, fg, C, gw, aligned, "
+                   "group, stage, keys);\n", "")]),
+]
+
+
+def splat_ablation_sources(src: str) -> dict:
+    """Each ablation's source: ``src`` with its replacements, each of which
+    must match exactly once."""
+    out = {}
+    for name, edits in SPLAT_ABLATIONS:
+        text = src
+        for old, new in edits:
+            if text.count(old) != 1:
+                raise AssertionError(f"splat ablation {name!r}: {old!r} "
+                                     f"found {text.count(old)} times")
+            text = text.replace(old, new)
+        out[name] = text
+    return out
+
+
+def splat_ablation(ksplat, build, gen, policy) -> list[dict]:
+    """The splat and its ablations (one library each, built under
+    ``build/``: one nvcc per variant, all started together) timed on the
+    B=6 and B=24 bf16 synthetic and wall-spin inputs, the kernel first and
+    last."""
+    out_dir = build.BUILD_ROOT / "splat_ablation"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = []
+    for name, text in splat_ablation_sources(
+            (build.CSRC / "splat.cu").read_text()).items():
+        stem = name.replace(" ", "_")
+        (out_dir / f"{stem}.cu").write_text(text)
+        lib = out_dir / f"lib{stem}.so"
+        procs.append((name, lib, subprocess.Popen(
+            [build._nvcc(), *build.NVCC_FLAGS, "-I", str(build.CSRC),
+             "-shared", "-o", str(lib), str(out_dir / f"{stem}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    fns = {}
+    for name, lib, proc in procs:
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"splat ablation {name!r}: nvcc failed:\n{log}")
+        fns[name] = ctypes.CDLL(str(lib)).ws_splat_max
+        fns[name].argtypes, fns[name].restype = build.SIGNATURES["ws_splat_max"]
+    cases = [("synthetic", *splat_inputs(b, torch.bfloat16, gen))
+             for b in PRODUCTION_B]
+    cases += [("wall spin", *wall_spin_splat_inputs(policy, b))
+              for b in PRODUCTION_B]
+    rows = []
+    for case, feats, ids in cases:
+        b, p, c = feats.shape
+        plan = ksplat.splat_plan(EGO, c)
+        out = torch.empty(b, EGO, EGO, c, device=feats.device)
+
+        def call(fn):
+            status = fn(feats.data_ptr(), ids.data_ptr(), out.data_ptr(), b,
+                        p, c, EGO * EGO, plan.cells_per_rank, plan.group,
+                        int(feats.dtype == torch.bfloat16),
+                        torch.cuda.current_stream().cuda_stream)
+            if status != 0:
+                raise RuntimeError(f"splat ablation: CUDA error {status}")
+
+        row = dict(phase="splat_ablation", case=case, B=b,
+                   dtype=str(feats.dtype).split(".")[-1])
+        row["kernel_ms"] = cuda_ms(lambda: ksplat.splat_max(feats, ids, EGO),
+                                   20)[0]
+        for name, fn in fns.items():
+            row[f"{name}_ms"] = cuda_ms(lambda fn=fn: call(fn), 20)[0]
+        row["kernel_again_ms"] = cuda_ms(
+            lambda: ksplat.splat_max(feats, ids, EGO), 20)[0]
+        rows.append(row)
     return rows
 
 
@@ -460,6 +612,9 @@ def main() -> int:
     ap.add_argument("--sweep-tiles", action="store_true",
                     help="also time the wgmma conv with every tile at every "
                          "call site (phase 2b')")
+    ap.add_argument("--splat-ablation", action="store_true",
+                    help="also time the splat with parts of it taken out "
+                         "(phase 2a')")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -492,8 +647,12 @@ def main() -> int:
 
     # phase 2: kernels vs twins, with times
     gen = torch.Generator(device="cuda").manual_seed(0)
-    splat_rows = check_splat(ksplat, gen)
+    policy = random_policy(0, rotate_in_splat=True)
+    splat_rows = check_splat(ksplat, gen, policy)
     emit(dict(phase="kernels", kernel="splat_max", cases=splat_rows))
+    if args.splat_ablation:
+        for row in splat_ablation(ksplat, build, gen, policy):
+            emit(row)
     conv_rows = check_conv(kconv, gen)
     emit(dict(phase="kernels", kernel="conv3x3_bn_relu", cases=conv_rows))
     conv_t = {}
@@ -505,7 +664,6 @@ def main() -> int:
             emit(row)
 
     # phase 3: the slice at full width, production mode
-    policy = random_policy(0, rotate_in_splat=True)
     slice_rows = [drive_production(policy, b, ksplat, kconv)
                   for b in PRODUCTION_B]
     for r in slice_rows:
@@ -530,7 +688,7 @@ def main() -> int:
     emit({"kernels": [
         {"name": "splat_max", "route": "cuda",
          "source": "ws_mgmap_tpu_torch/ops/kernels/csrc/splat.cu",
-         "replaces": "ws_mgmap_tpu/ops/pallas/splat.py:193",
+         "replaces": "ws_mgmap_tpu/ops/pallas/splat.py:195",
          "launches": launched("splat_max"),
          "max_abs_err": max(r["max_abs_err"] for r in splat_rows),
          "ms": sp["ms"], "plain_ms": sp["plain_ms"],

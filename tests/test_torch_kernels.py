@@ -115,29 +115,165 @@ def test_conv_rejects_residual_with_x2():
                               torch.zeros(4), residual=x, x2=x)
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("b,dtype", [(2, torch.float32), (6, torch.bfloat16),
-                                     (13, torch.bfloat16)])
-def test_splat_kernel_matches_twin(cuda, b, dtype):
-    feats, ids = _splat_inputs(np.random.RandomState(b), b, 4096, 64)
-    f, i = feats.to(cuda, dtype), ids.to(cuda)
+def _check_splat(f, i, ego):
+    """One call launches the kernel once and matches the twin exactly
+    (a max picks one of its inputs), NaN in the same places."""
     before = ksplat.splat_max.launches
-    got = ksplat.splat_max(f, i, EGO)
+    got = ksplat.splat_max(f, i, ego)
     torch.cuda.synchronize()
     assert ksplat.splat_max.launches == before + 1
-    # order-independent max: exact
-    assert torch.equal(got, ksplat.splat_max_plain(f, i, EGO))
+    torch.testing.assert_close(got, ksplat.splat_max_plain(f, i, ego),
+                               rtol=0, atol=0, equal_nan=True)
+
+
+@pytest.mark.parametrize("ego,c", [(12, 4), (100, 64), (240, 64), (12, 20),
+                                   (12, 70), (100, 3)])
+def test_splat_plan_owns_every_cell_and_channel_once(ego, c):
+    plan = ksplat.splat_plan(ego, c)
+    assert plan.smem_bytes <= ksplat.SMEM_BUDGET - 16
+    assert 1 <= plan.group <= ksplat.MAX_GROUP and ksplat.RANKS <= 8
+    owned = np.zeros((ego * ego, c), np.int64)
+    for rank in range(ksplat.RANKS):
+        cell = np.arange(plan.cells_per_rank) * ksplat.RANKS + rank
+        cell = cell[cell < ego * ego]
+        for g in range(plan.n_groups):
+            g0 = g * plan.group
+            owned[cell, g0:min(g0 + plan.group, c)] += 1
+    assert (owned == 1).all()
+    if (ego, c) == (100, 64):  # the main path: 2 groups of 32 channels
+        assert (plan.n_groups, plan.group) == (2, 32)
+
+
+def test_splat_plan_raises_past_the_shared_memory():
+    assert ksplat.splat_plan(240, 64).n_groups > 2
+    with pytest.raises(ValueError):
+        ksplat.splat_plan(700, 64)
+
+
+def test_splat_ablations_still_edit_the_kernel_source():
+    # chip_smoke.py --splat-ablation edits csrc/splat.cu by text; each edit
+    # must still match the kernel exactly once
+    import importlib.util
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1]
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  root / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    src = (root / "ws_mgmap_tpu_torch/ops/kernels/csrc/splat.cu").read_text()
+    variants = smoke.splat_ablation_sources(src)
+    assert sorted(variants) == sorted(n for n, _ in smoke.SPLAT_ABLATIONS)
+    assert all(text != src for text in variants.values())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b", [1, 2, 6, 13, 24])
+def test_splat_kernel_matches_twin(cuda, b, dtype):
+    feats, ids = _splat_inputs(np.random.RandomState(b), b, 4096, 64)
+    _check_splat(feats.to(cuda, dtype), ids.to(cuda), EGO)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("ego,c", [(12, 4), (12, 64), (12, 20), (100, 4),
+                                   (100, 64), (100, 20)])
+def test_splat_kernel_channels_and_grids(cuda, ego, c, dtype):
+    rng = np.random.RandomState(ego + c)
+    feats = torch.from_numpy((rng.randn(3, 5000, c) * 2).astype(np.float32))
+    ids = rng.randint(0, ego * ego, (3, 5000)).astype(np.int32)
+    ids[rng.rand(3, 5000) < 0.6] = -1
+    f, i = feats.to(cuda, dtype), torch.from_numpy(ids).to(cuda)
+    _check_splat(f, i, ego)
+    # a view 2 or 4 bytes off the allocation's alignment
+    shifted = torch.empty(f.numel() + 1, dtype=dtype, device=cuda)
+    shifted[1:] = f.flatten()
+    _check_splat(shifted[1:].view(f.shape), i, ego)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_splat_kernel_every_pixel_on_one_cell(cuda, dtype):
+    g = torch.Generator(device=cuda).manual_seed(1)
+    f = (torch.randn(2, 50176, 64, generator=g, device=cuda) * 2).to(dtype)
+    i = torch.full((2, 50176), 4321, dtype=torch.int32, device=cuda)
+    _check_splat(f, i, 100)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_splat_kernel_on_projected_wall_ids(cuda, dtype):
+    """Ids as the step makes them: the "wall 3 m ahead" depth projected by
+    spatial_locs at the feature resolution, with the heading rotation."""
+    from ws_mgmap_tpu_torch.ops.projection import cell_ids, spatial_locs
+    from ws_mgmap_tpu_torch.tools.synthetic import wall_obs
+
+    obs = wall_obs(3, 0.0, np.random.RandomState(0))
+    depth = torch.from_numpy(np.stack([o["depth"] for o in obs])).to(cuda)
+    heading = torch.tensor([0.0, 0.4, -1.3], device=cuda)
+    x, y, valid = spatial_locs(depth * 10.0, 100, 0.12, out_hw=(224, 224),
+                               heading=heading)
+    i = cell_ids(x, y, valid, 100, (224, 224))
+    assert 0.1 < float((i >= 0).float().mean()) < 0.9
+    g = torch.Generator(device=cuda).manual_seed(2)
+    f = (torch.randn(3, 224 * 224, 64, generator=g, device=cuda)).to(dtype)
+    _check_splat(f, i, 100)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_splat_kernel_propagates_nan_and_edge_values(cuda, dtype):
+    """The kernel against the twin on NaN (of either sign), +inf, +0.0
+    beside -0.0, maxima at or below -1e16, -inf and an all-invalid frame.
+    The sign of a zero max over a cell holding both +0.0 and -0.0 depends
+    on the order of the merges, in the kernel and in the twin alike;
+    assert_close treats the two zeros as equal."""
+    from ws_mgmap_tpu_torch.tools.synthetic import special_splat_inputs
+
+    feats, ids = special_splat_inputs(np.random.RandomState(3), 256, 4, EGO)
+    f = torch.from_numpy(feats).to(cuda, dtype)
+    i = torch.from_numpy(ids).to(cuda)
+    _check_splat(f, i, EGO)
+    got = ksplat.splat_max(f, i, EGO).reshape(2, EGO * EGO, 4)
+    assert torch.isnan(got[0, 0, 0]) and torch.isnan(got[0, 1, 1])
+    assert got[0, 2, 2] == float("inf") and not got[1].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ego,c", [(12, 4), (100, 64), (240, 64), (12, 20),
+                                   (12, 70), (100, 3)])
+def test_splat_plan_shared_memory_matches_the_kernel(cuda, ego, c):
+    # the plan's layout copy against the one the built kernel launches with
+    plan = ksplat.splat_plan(ego, c)
+    assert ksplat.splat_smem_bytes(plan) == plan.smem_bytes
+
+
+@pytest.mark.gpu
+def test_splat_kernel_fits_clusters_on_the_card(cuda):
+    f = torch.zeros(6, 50176, 64, dtype=torch.bfloat16, device=cuda)
+    i = torch.zeros(6, 50176, dtype=torch.int32, device=cuda)
+    assert ksplat.splat_active_clusters(f, i, 100) >= 1
 
 
 @pytest.mark.gpu
 def test_splat_kernel_rejects_bad_operands(cuda):
     f = torch.zeros(2, 16, 4, device=cuda)
+    i = torch.zeros(2, 16, dtype=torch.int32, device=cuda)
+    before = ksplat.splat_max.launches
     with pytest.raises(TypeError):
-        ksplat.splat_max(f, torch.zeros(2, 16, dtype=torch.int64,
-                                        device=cuda), EGO)
+        ksplat.splat_max(f, i.long(), EGO)
+    with pytest.raises(TypeError):
+        ksplat.splat_max(f.half(), i, EGO)
     with pytest.raises(ValueError):
-        ksplat.splat_max(f[:, ::2], torch.zeros(2, 8, dtype=torch.int32,
-                                                device=cuda), EGO)
+        ksplat.splat_max(f[:, ::2], i[:, ::2].contiguous(), EGO)
+    with pytest.raises(ValueError):  # ids [B, P, 1]
+        ksplat.splat_max(f, i[..., None], EGO)
+    with pytest.raises(ValueError):  # ids on the CPU
+        ksplat.splat_max(f, i.cpu(), EGO)
+    with pytest.raises(ValueError):
+        ksplat.splat_max(f[:0], i[:0], EGO)
+    assert ksplat.splat_max.launches == before
 
 
 @pytest.mark.gpu

@@ -13,6 +13,7 @@ import torch
 
 from ws_mgmap_tpu.ops.pallas.splat import splat_pallas, splat_pallas_packed
 from ws_mgmap_tpu_torch.ops.kernels import splat as ksplat
+from ws_mgmap_tpu_torch.tools.synthetic import special_splat_inputs
 
 RNG = np.random.RandomState(5)
 EGO = 12
@@ -55,3 +56,23 @@ def test_twin_matches_splat_pallas_packed_b13(dtype):
                                           jnp.asarray(ids), ego_size=EGO))
     np.testing.assert_array_equal(_twin(feats, ids), want)
 
+
+
+@pytest.mark.parametrize("dtype", [np.float32, ml_dtypes.bfloat16])
+def test_twin_matches_splat_pallas_on_edge_values(dtype):
+    """NaN (of either sign), +inf, +0.0 beside -0.0, maxima at or below
+    -1e16, -inf and an all-invalid frame: both propagate NaN and write 0
+    at empty cells and maxima <= -1e16. The sign of a zero max taken over
+    +0.0 and -0.0 depends on the order of the merges; assert_array_equal
+    compares NaN positions and treats +0.0 and -0.0 as equal."""
+    feats, ids = special_splat_inputs(np.random.RandomState(3), 256, 4, EGO)
+    feats = feats.astype(dtype)
+    want = np.asarray(splat_pallas(jnp.asarray(feats), jnp.asarray(ids),
+                                   ego_size=EGO))
+    got = _twin(feats, ids)
+    cell = got.reshape(2, EGO * EGO, 4)
+    assert np.isnan(cell[0, 0, 0]) and np.isnan(cell[0, 1, 1])
+    assert cell[0, 2, 2] == np.inf
+    # (cell 7 holds -1e16, which bf16 rounds to -9.99e15)
+    assert (cell[0, 5:7] == 0).all() and (cell[1] == 0).all()
+    np.testing.assert_array_equal(got, want)

@@ -29,8 +29,9 @@ _VP, _INT = ctypes.c_void_p, ctypes.c_int
 # the C interface of csrc/*.cu: pointers and the stream as void*, sizes int
 SIGNATURES = {
     "ws_cuda_error_string": ([_INT], ctypes.c_char_p),
-    "ws_splat_max_f32": ([_VP] * 3 + [_INT] * 4 + [_VP], _INT),
-    "ws_splat_max_bf16": ([_VP] * 3 + [_INT] * 4 + [_VP], _INT),
+    "ws_splat_max": ([_VP] * 3 + [_INT] * 7 + [_VP], _INT),
+    "ws_splat_max_active_clusters": ([_INT] * 6 + [_VP], _INT),
+    "ws_splat_smem_bytes": ([_INT] * 2, _INT),
     "ws_conv3x3_bn_act_f32": ([_VP] * 7 + [_INT] * 7 + [_VP], _INT),
     "ws_conv3x3_bn_act_bf16": ([_VP] * 7 + [_INT] * 7 + [_VP], _INT),
     "ws_conv3x3_wgmma_bf16": ([_VP] * 7 + [_INT] * 9 + [_VP], _INT),

@@ -87,20 +87,17 @@ def spatial_locs(depth: torch.Tensor, ego_size: int, local_scale: float,
     return x_gp, y_gp, valid
 
 
-def splat_to_ground(feats: torch.Tensor, x_gp: torch.Tensor,
-                    y_gp: torch.Tensor, valid: torch.Tensor,
-                    ego_size: int) -> torch.Tensor:
-    """Scatter-max per-pixel features [B, Hf, Wf, C] onto the ego grid.
-
-    Cell ids come from :func:`spatial_locs` (subsampled to the feature
-    resolution if needed); invalid or off-grid pixels get id -1. Returns
-    [B, E, E, C] in the feature dtype, 0 where no valid pixel landed.
-    """
-    b, hf, wf, c = feats.shape
+def cell_ids(x_gp: torch.Tensor, y_gp: torch.Tensor, valid: torch.Tensor,
+             ego_size: int, out_hw: tuple[int, int]) -> torch.Tensor:
+    """The splat's cell id of each feature pixel, [B, Hf * Wf] int32:
+    :func:`spatial_locs`'s cells subsampled to ``out_hw`` = (Hf, Wf) if
+    needed, -1 at invalid or off-grid pixels."""
+    b = x_gp.shape[0]
     hd, wd = x_gp.shape[1:]
+    hf, wf = out_hw
     if (hd, wd) != (hf, wf):
-        iy = _subsample_indices(hd, hf, feats.device)
-        ix = _subsample_indices(wd, wf, feats.device)
+        iy = _subsample_indices(hd, hf, x_gp.device)
+        ix = _subsample_indices(wd, wf, x_gp.device)
         x_gp = x_gp[:, iy[:, None], ix[None, :]]
         y_gp = y_gp[:, iy[:, None], ix[None, :]]
         valid = valid[:, iy[:, None], ix[None, :]]
@@ -108,8 +105,19 @@ def splat_to_ground(feats: torch.Tensor, x_gp: torch.Tensor,
         y_gp < ego_size)
     ids = torch.where(valid & in_bounds, y_gp * ego_size + x_gp, -1).to(
         torch.int32)
-    out = splat_max(feats.reshape(b, -1, c).contiguous(),
-                    ids.reshape(b, -1).contiguous(), ego_size)
+    return ids.reshape(b, -1).contiguous()
+
+
+def splat_to_ground(feats: torch.Tensor, x_gp: torch.Tensor,
+                    y_gp: torch.Tensor, valid: torch.Tensor,
+                    ego_size: int) -> torch.Tensor:
+    """Scatter-max per-pixel features [B, Hf, Wf, C] onto the ego grid at
+    the cells of :func:`cell_ids`. Returns [B, E, E, C] in the feature
+    dtype, 0 where no valid pixel landed.
+    """
+    b, hf, wf, c = feats.shape
+    ids = cell_ids(x_gp, y_gp, valid, ego_size, (hf, wf))
+    out = splat_max(feats.reshape(b, -1, c).contiguous(), ids, ego_size)
     return out.to(feats.dtype)
 
 

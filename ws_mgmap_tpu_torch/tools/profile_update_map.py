@@ -29,7 +29,7 @@ GROUPS = [
     ("fused conv3x3 wgmma (csrc/conv3x3_wgmma.cu)",
      ("conv3x3_wgmma_kernel",)),
     ("fused conv3x3 direct (csrc/conv3x3.cu)", ("conv3x3_kernel",)),
-    ("splat (csrc/splat.cu)", ("scatter_max", "fill_neg_inf", "zero_eps")),
+    ("splat (csrc/splat.cu)", ("splat_max_kernel",)),
     ("library conv (cuDNN)", ("cudnn", "xmma", "conv", "implicit", "gemm",
                               "nchwToNhwc", "nhwcToNchw", "sm90")),
     ("grid_sample rotation", ("grid_sampler", "affine")),

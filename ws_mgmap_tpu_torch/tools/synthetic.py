@@ -41,3 +41,36 @@ def wall_obs(b: int, compass: float, rng: np.random.RandomState,
         "gps": np.zeros(2, np.float32),
         "compass": np.array([compass], np.float32),
     } for _ in range(b)]
+
+
+def special_splat_inputs(rng: np.random.RandomState, p: int, c: int,
+                         ego: int) -> tuple[np.ndarray, np.ndarray]:
+    """Two frames of splat operands (feats [2, p, c] fp32, ids [2, p]
+    int32) whose first frame puts edge values on cells 0-8 and random
+    finite ones on the other cells, and whose second frame is all invalid.
+    Cell 0: a NaN in channel 0; 1: a negative NaN and +inf in channel 1;
+    2: +inf; 3: +0.0 and -0.0; 4: -0.0 only; 5: maxima below -1e16; 6:
+    -inf only; 7: exactly -1e16; 8: -9.9e15. Needs c >= 3 and p >= 64."""
+    feats = (rng.randn(2, p, c) * 2.0).astype(np.float32)
+    ids = rng.randint(9, ego * ego, (2, p)).astype(np.int32)
+    ids[rng.rand(2, p) < 0.5] = -1
+    ids[1] = -1
+    cases = [(0, {0: np.nan}), (0, {}), (1, {1: -np.nan}), (1, {1: np.inf}),
+             (2, {2: np.inf}), (2, {}), (3, "+0"), (3, "-0"), (4, "-0"),
+             (4, "-0"), (5, -2e16), (5, -3e16), (6, -np.inf), (7, -1e16),
+             (8, -9.9e15)]
+    neg_nan = np.array([0xFFC00000], np.uint32).view(np.float32)[0]
+    for k, (cell, val) in enumerate(cases):
+        q = 4 * k + 1  # scattered over the frame, never adjacent
+        ids[0, q] = cell
+        if isinstance(val, dict):
+            for ch, v in val.items():
+                feats[0, q, ch] = neg_nan if (np.isnan(v) and
+                                              np.signbit(v)) else v
+        elif val == "+0":
+            feats[0, q] = 0.0
+        elif val == "-0":
+            feats[0, q] = -0.0
+        else:
+            feats[0, q] = val
+    return feats, ids
