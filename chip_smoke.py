@@ -8,15 +8,19 @@ Builds the port's CUDA kernels from ``ws_mgmap_tpu_torch/ops/kernels/csrc``
 PyTorch twin at the main path's shapes and times both (the splat on
 synthetic ids, on the ids of a B=6 and a B=24 step
 of the wall spin, and untimed on edge values: NaN, infinities, signed
-zeros; the fused conv's wgmma kernel at every UNet call site at B=6 and
-B=24 and its direct kernel at an fp32 and a ragged-channel shape; with
-``--sweep-tiles`` also the wgmma kernel with every tile; with
-``--splat-ablation`` also variants of the splat with a part taken out),
-then drives the
-map-update step (``RolloutEngine.update_map``) at full width: the
-ResNet18-UNet over 224^2 RGB, 256^2 depth, 100^2 ego and 240^2 global maps,
-random weights from a seed. Production mode (bf16 + rotate-in-splat) runs
-at B=6 and B=24 on a "wall 3 m ahead" drive; the fp32 parity mode runs at
+zeros; the fused conv's wgmma kernel at every call site at B=6 and B=24,
+the UNet's 16 and the map decoder's 4, and its direct kernel at an fp32
+and a ragged-channel shape; with ``--sweep-tiles`` also the wgmma kernel
+with every tile; with ``--splat-ablation`` also variants of the splat
+with a part taken out), then drives the whole policy at full width with
+random weights from a seed: the map-update step
+(``RolloutEngine.update_map``: the ResNet18-UNet over 224^2 RGB, 256^2
+depth, 100^2 ego and 240^2 global maps) and the decision path
+(``RolloutEngine.act`` every third step: the UNet and the mapping step,
+the depth ResNet50, the map encoder / decoder / classifier, the
+instruction biLSTM once per episode, attention, the two GRUs and the
+heads). Production mode (bf16 + rotate-in-splat) runs at B=6 and B=24 on
+a "wall 3 m ahead" drive; the fp32 parity mode runs act and update_map at
 B=2 against the same port on the CPU.
 
 Each phase prints one JSON line; any failure raises, so the exit code is
@@ -299,21 +303,30 @@ def splat_ablation(ksplat, build, gen, policy) -> list[dict]:
 # --------------------------------------------------------------------------
 # phase 2b: the fused conv kernel vs its twin, at every fused call site
 # --------------------------------------------------------------------------
-# (name, H, C1, C2, Co, residual, launches per update_map step) at width 1
+# (name, H, C1, C2, Co, residual, launches per update_map step, launches
+# per act step) at width 1: the UNet's sites run on both steps, the map
+# decoder's only on the act step (its 6x6 BasicBlocks stay unfused, as in
+# the JAX package)
 CONV_SITES = [
-    ("conv_original_size1", 224, 64, 0, 64, False, 1),
-    ("conv_original_size2", 224, 128, 64, 64, False, 1),
-    ("conv_up0", 112, 256, 64, 128, False, 1),
-    ("conv_up1", 56, 256, 64, 256, False, 1),
-    ("conv_up2", 28, 512, 128, 256, False, 1),
-    ("conv_up3", 14, 512, 256, 512, False, 1),
-    ("layer1 conv", 56, 64, 0, 64, False, 2),
-    ("layer1 conv+res", 56, 64, 0, 64, True, 2),
-    ("layer2 conv", 28, 128, 0, 128, False, 1),
-    ("layer2 conv+res", 28, 128, 0, 128, True, 2),
-    ("layer3 conv", 14, 256, 0, 256, False, 1),
-    ("layer3 conv+res", 14, 256, 0, 256, True, 2),
+    ("conv_original_size1", 224, 64, 0, 64, False, 1, 1),
+    ("conv_original_size2", 224, 128, 64, 64, False, 1, 1),
+    ("conv_up0", 112, 256, 64, 128, False, 1, 1),
+    ("conv_up1", 56, 256, 64, 256, False, 1, 1),
+    ("conv_up2", 28, 512, 128, 256, False, 1, 1),
+    ("conv_up3", 14, 512, 256, 512, False, 1, 1),
+    ("layer1 conv", 56, 64, 0, 64, False, 2, 2),
+    ("layer1 conv+res", 56, 64, 0, 64, True, 2, 2),
+    ("layer2 conv", 28, 128, 0, 128, False, 1, 1),
+    ("layer2 conv+res", 28, 128, 0, 128, True, 2, 2),
+    ("layer3 conv", 14, 256, 0, 256, False, 1, 1),
+    ("layer3 conv+res", 14, 256, 0, 256, True, 2, 2),
+    ("map_decoder.conv_original_size0", 24, 256, 0, 64, False, 0, 1),
+    ("map_decoder.conv_original_size1", 24, 64, 0, 64, False, 0, 1),
+    ("map_decoder.conv_up0", 12, 64, 64, 128, False, 0, 1),
+    ("map_decoder.conv_original_size2", 24, 128, 64, 64, False, 0, 1),
 ]
+STEP_KINDS = ("update_map", "act")  # CONV_SITES' launch columns, in order
+CONV_PER_STEP = {"update_map": 16, "act": 20}
 # the kernel and the twin both sum in fp32 in different orders; a bf16
 # output may then round one bf16 ulp (2^-7 relative) apart
 CONV_TOL = {torch.bfloat16: (2**-7, 1e-3), torch.float32: (1e-4, 1e-4)}
@@ -398,11 +411,17 @@ def conv_case(kconv, name, h, c1, c2, co, res, dtype, b, gen):
     lib, _ = cuda_ms(cudnn_call(x, x2, w, scale, bias, residual), iters)
     extra = {}
     if variant == "wgmma":  # the direct kernel on the same call, for scale
+        grid = kconv.wgmma_grid(b, h, h, c1 + c2, co)
+        blocks = math.prod(grid)
         extra = dict(
             direct_ms=cuda_ms(lambda: kconv.conv3x3_bn_relu_direct(
                 x, w, scale, bias, True, residual, x2), iters)[0],
             tile_th_bn=list(kconv.wgmma_tile(b, h, h, c1 + c2, co)),
-            grid=list(kconv.wgmma_grid(b, h, h, c1 + c2, co)))
+            grid=list(grid), blocks=blocks,
+            # wgmma_tile's branch: below MIN_BLOCKS no tile keeps two
+            # thirds of the SMs busy, and the one with the most blocks wins
+            tile_rule=("fewest L2 bytes" if blocks >= kconv.MIN_BLOCKS
+                       else "most blocks"))
     esz = x.element_size()
     flops = 2.0 * b * h * h * 9 * (c1 + c2) * co
     nbytes = esz * (x.numel() + (0 if x2 is None else x2.numel()) + w.numel()
@@ -431,16 +450,20 @@ def check_conv(kconv, gen) -> list[dict]:
     return rows
 
 
-def conv_per_step(rows: list[dict], b: int) -> dict:
-    """The 16 fused calls of one bf16 step at batch b, summed by call
-    site."""
-    per_step = {s[0]: s[6] for s in CONV_SITES}
+def conv_per_step(rows: list[dict], b: int, step: str) -> dict:
+    """The fused calls of one bf16 ``step`` ("update_map": 16, "act": 20)
+    at batch b, summed by call site."""
+    col = 6 + STEP_KINDS.index(step)
+    per_step = {s[0]: s[col] for s in CONV_SITES if s[col]}
+    if sum(per_step.values()) != CONV_PER_STEP[step]:
+        raise AssertionError(f"CONV_SITES: {per_step} for one {step} step")
     sites = [r for r in rows if r["B"] == b and r["dtype"] == "bfloat16"
              and r["site"] in per_step]
     t = {k: sum(r[k] * per_step[r["site"]] for r in sites)
          for k in ("ms", "host_ms", "direct_ms", "plain_ms", "library_ms",
                    "bound_ms", "bytes_ms", "ops_ms")}
-    return dict(phase="conv_per_step", B=b, dtype="bfloat16", **t,
+    return dict(phase="conv_per_step", step=step, B=b,
+                calls=CONV_PER_STEP[step], dtype="bfloat16", **t,
                 below_library=t["ms"] < t["library_ms"],
                 sites_slower_than_library=[r["site"] for r in sites
                                            if r["ms"] > r["library_ms"]])
@@ -453,7 +476,7 @@ def sweep_tiles(kconv, gen) -> list[dict]:
     picks."""
     rows, seen = [], set()
     for b in PRODUCTION_B:
-        for name, h, c1, c2, co, res, _ in CONV_SITES:
+        for name, h, c1, c2, co, res, *_ in CONV_SITES:
             if (b, h, c1, c2, co, res) in seen:
                 continue
             seen.add((b, h, c1, c2, co, res))
@@ -483,6 +506,52 @@ def occupied(x: torch.Tensor) -> torch.Tensor:
     return m > 1e-3 * float(m.max())
 
 
+def check_wall(ego: torch.Tensor, b: int) -> tuple[int, list[int]]:
+    """The first step's fp32 ego map [b, 100, 100, 64] of the wall spin:
+    finite, and every env sees the wall 3 m ahead (row 49.5 - 3/0.12)
+    across the 90-degree field of view. Returns the last env's wall row and
+    first and last columns."""
+    if ego.shape != (b, EGO, EGO, C) or ego.dtype != torch.float32:
+        raise AssertionError(f"ego map {ego.shape} {ego.dtype}")
+    if not bool(torch.isfinite(ego).all()):
+        raise AssertionError("non-finite ego map")
+    for i in range(b):
+        occ = occupied(ego[i])
+        rows = torch.nonzero(occ.any(1)).flatten().tolist()
+        cols = torch.nonzero(occ.any(0)).flatten().tolist()
+        wall_row = int(occ.sum(1).argmax())
+        if not (23 <= wall_row <= 25 and 22 <= cols[0] <= 26
+                and 72 <= cols[-1] <= 76 and rows[-1] - rows[0] <= 2):
+            raise AssertionError(f"env {i} wall: row {wall_row}, rows "
+                                 f"{rows[0]}-{rows[-1]}, cols {cols[0]}-"
+                                 f"{cols[-1]}")
+    return wall_row, [cols[0], cols[-1]]
+
+
+def reset_launches(ksplat, kconv) -> None:
+    ksplat.splat_max.launches = 0
+    kconv.conv3x3_bn_relu_wgmma.launches = 0
+    kconv.conv3x3_bn_relu_direct.launches = 0
+
+
+def launch_counts(ksplat, kconv) -> dict:
+    return {"splat_max": ksplat.splat_max.launches, **conv_launches(kconv)}
+
+
+def host_ms(fn, rounds: int, per_round: int) -> tuple[float, list[float]]:
+    """Median and range of the host-clock ms per call of ``fn`` over
+    synchronized rounds of ``per_round`` calls."""
+    round_ms = []
+    for _ in range(rounds):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(per_round):
+            fn()
+        torch.cuda.synchronize()
+        round_ms.append((time.perf_counter() - t0) * 1e3 / per_round)
+    return float(np.median(round_ms)), [min(round_ms), max(round_ms)]
+
+
 def drive_production(policy, b: int, ksplat, kconv) -> dict:
     """bf16 + rotate-in-splat at batch b: a 15-degree-per-step spin in
     front of the wall with masks=0 at the first and the last step, then a
@@ -495,9 +564,7 @@ def drive_production(policy, b: int, ksplat, kconv) -> dict:
     spin = 6
     obs = [eng.batch_obs(wall_obs(b, math.radians(15 * k), gen))
            for k in range(spin)]
-    ksplat.splat_max.launches = 0
-    kconv.conv3x3_bn_relu_wgmma.launches = 0
-    kconv.conv3x3_bn_relu_direct.launches = 0
+    reset_launches(ksplat, kconv)
     counts, first_ego = [], None
     for k in range(spin):
         masks = np.zeros((b, 1)) if k in (0, spin - 1) else np.ones((b, 1))
@@ -511,17 +578,11 @@ def drive_production(policy, b: int, ksplat, kconv) -> dict:
     warm, rounds, per_round = 2, 5, 8
     for k in range(warm):
         eng.update_map(obs[k % spin], np.ones((b, 1)))
-    round_ms = []
-    for _ in range(rounds):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for k in range(per_round):
-            eng.update_map(obs[k % spin], np.ones((b, 1)))
-        torch.cuda.synchronize()
-        round_ms.append((time.perf_counter() - t0) * 1e3 / per_round)
-    ms = float(np.median(round_ms))
-    launches = {"splat_max": ksplat.splat_max.launches,
-                **conv_launches(kconv)}
+    seq = iter(range(rounds * per_round))
+    ms, ms_range = host_ms(lambda: eng.update_map(obs[next(seq) % spin],
+                                                  np.ones((b, 1))),
+                           rounds, per_round)
+    launches = launch_counts(ksplat, kconv)
     steps = spin + warm + rounds * per_round
 
     # checks: launches, shapes, the wall, the ring, the reset
@@ -531,46 +592,163 @@ def drive_production(policy, b: int, ksplat, kconv) -> dict:
     if launches["conv_wgmma"] != 16 * steps or launches["conv_direct"]:
         raise AssertionError(f"B={b}: conv launches {launches}, expected "
                              f"{16 * steps} wgmma and 0 direct")
-    if first_ego.shape != (b, EGO, EGO, C) or first_ego.dtype != torch.float32:
-        raise AssertionError(f"ego map {first_ego.shape} {first_ego.dtype}")
-    if not bool(torch.isfinite(first_ego).all()):
-        raise AssertionError("non-finite ego map")
-    for i in range(b):  # every env sees the wall: row 49.5 - 3/0.12, 90 deg
-        occ = occupied(first_ego[i])
-        rows = torch.nonzero(occ.any(1)).flatten().tolist()
-        cols = torch.nonzero(occ.any(0)).flatten().tolist()
-        wall_row = int(occ.sum(1).argmax())
-        if not (23 <= wall_row <= 25 and 22 <= cols[0] <= 26
-                and 72 <= cols[-1] <= 76 and rows[-1] - rows[0] <= 2):
-            raise AssertionError(f"env {i} wall: row {wall_row}, rows "
-                                 f"{rows[0]}-{rows[-1]}, cols {cols[0]}-"
-                                 f"{cols[-1]}")
+    wall_row, cols = check_wall(first_ego, b)
     if not all(counts[k + 1] > counts[k] for k in range(spin - 2)):
         raise AssertionError(f"ring does not accumulate: {counts}")
     if counts[-1] > 1.25 * counts[0]:
         raise AssertionError(f"masks=0 did not clear the map: {counts}")
     return dict(phase="slice", mode="bf16+rotate_in_splat", B=b,
                 steps=steps, launches=launches, wall_row=wall_row,
-                wall_cols=[cols[0], cols[-1]], ring_cells=counts,
-                ms_per_step=ms, ms_per_step_range=[min(round_ms),
-                                                   max(round_ms)],
+                wall_cols=cols, ring_cells=counts,
+                ms_per_step=ms, ms_per_step_range=ms_range,
                 frames_per_s=b * 1e3 / ms,
                 peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
 
 
+def drive_act(policy, b: int, ksplat, kconv) -> dict:
+    """The decision path in bf16 + rotate-in-splat at batch b, at the
+    reference cadence (act, update_map, update_map) on the wall spin, 15
+    degrees a step: masks=0 at the first step; at the third act the first
+    half of the envs start new episodes with new instructions (the text
+    cache re-encodes); one ``zero_hidden_at`` after the second act. Every
+    step's launches are checked (act: 1 splat, 20 wgmma, 0 direct;
+    update_map: 1, 16, 0), then act, the decision cycle and encode_text
+    are timed."""
+    from ws_mgmap_tpu_torch.tools.synthetic import (instruction_tokens,
+                                                    wall_obs)
+    from ws_mgmap_tpu_torch.train.rollout import RolloutEngine
+
+    torch.cuda.reset_peak_memory_stats()
+    eng = RolloutEngine(policy, b, compute_dtype=torch.bfloat16)
+    gen = np.random.RandomState(100 + b)
+    tok0 = instruction_tokens(b, gen)
+    tok1 = tok0.copy()
+    tok1[: b // 2] = instruction_tokens(b // 2, gen)
+    cycles, new_episode, zeroed = 4, 2, b - 1
+    obs = [eng.batch_obs(wall_obs(b, math.radians(15 * k), gen,
+                                  tokens=tok1 if k >= 3 * new_episode
+                                  else tok0))
+           for k in range(3 * cycles)]
+    encodes = []
+    real_encode = eng.policy.encode_text
+
+    def counted_encode(tokens):
+        encodes.append(tokens.shape)
+        return real_encode(tokens)
+
+    eng.policy.encode_text = counted_encode
+    want = {"act": {"splat_max": 1, "conv_wgmma": 20, "conv_direct": 0},
+            "update_map": {"splat_max": 1, "conv_wgmma": 16,
+                           "conv_direct": 0}}
+    reset_launches(ksplat, kconv)
+    first, prev_hidden = None, None
+    for k in range(3 * cycles):
+        masks = np.ones((b, 1))
+        if k == 0:
+            masks[:] = 0.0
+        if k == 3 * new_episode:
+            masks[: b // 2] = 0.0
+        before = launch_counts(ksplat, kconv)
+        if k % 3:
+            eng.update_map(obs[k], masks)
+            kind = "update_map"
+        else:
+            out = eng.act(obs[k], masks)
+            kind = "act"
+            for name in ("action", "value", "prog", "hidden"):
+                if not bool(torch.isfinite(getattr(out, name)).all()):
+                    raise AssertionError(f"B={b} step {k}: non-finite "
+                                         f"{name}")
+            if tuple(out.pred_sem_map.shape) != (b, 48, 48, 27):
+                raise AssertionError(f"B={b}: pred_sem_map "
+                                     f"{tuple(out.pred_sem_map.shape)}")
+            if prev_hidden is not None and torch.equal(prev_hidden,
+                                                       out.hidden):
+                raise AssertionError(f"B={b} step {k}: hidden unchanged")
+            if k == 0:
+                first = out
+            if k == 3:
+                eng.zero_hidden_at(zeroed)
+                if bool(eng.hidden[:, zeroed].any()) or not bool(
+                        eng.hidden[:, :zeroed].any()):
+                    raise AssertionError(f"B={b}: zero_hidden_at({zeroed})")
+            prev_hidden = eng.hidden
+        ran = {key: v - before[key]
+               for key, v in launch_counts(ksplat, kconv).items()}
+        if ran != want[kind]:
+            raise AssertionError(f"B={b} step {k} ({kind}): launches {ran}, "
+                                 f"expected {want[kind]}")
+    if len(encodes) != 2:
+        raise AssertionError(f"B={b}: encode_text ran {len(encodes)} times "
+                             "for 2 token batches")
+    wall_row, cols = check_wall(first.ego_map, b)
+    steps = {"act": cycles, "update_map": 2 * cycles}
+
+    # timed: rounds of acts, then of decision cycles, on the last cycle's
+    # observations (its tokens are cached, so the biLSTM does not run)
+    ones = np.ones((b, 1))
+    last = obs[-3:]
+    warm, rounds, per_round = 2, 5, 8
+    for _ in range(warm):
+        eng.act(last[0], ones)
+    act_ms, act_range = host_ms(lambda: eng.act(last[0], ones), rounds,
+                                per_round)
+
+    def cycle():
+        eng.act(last[0], ones)
+        eng.update_map(last[1], ones)
+        eng.update_map(last[2], ones)
+
+    cycle_ms, cycle_range = host_ms(cycle, rounds, per_round)
+    steps["act"] += warm + 2 * rounds * per_round
+    steps["update_map"] += 2 * rounds * per_round
+    launches = launch_counts(ksplat, kconv)
+    expect = {key: sum(want[kind][key] * n for kind, n in steps.items())
+              for key in launches}
+    if launches != expect or len(encodes) != 2:
+        raise AssertionError(f"B={b}: launches {launches}, expected "
+                             f"{expect}; {len(encodes)} text encodes")
+    # as the engine calls it: the tokens on the host, the biLSTM stepping
+    # to the longest row
+    tok = obs[-1]["instruction"]
+    text_ms, text_range = host_ms(lambda: real_encode(tok), 5, 1)
+    return dict(phase="act_drive", mode="bf16+rotate_in_splat", B=b,
+                steps=steps, launches=launches,
+                launches_per_step=want, text_encodes=len(encodes),
+                wall_row=wall_row, wall_cols=cols,
+                act_ms=act_ms, act_ms_range=act_range,
+                act_frames_per_s=b * 1e3 / act_ms,
+                cycle_ms=cycle_ms, cycle_ms_range=cycle_range,
+                encode_text_ms=text_ms, encode_text_ms_range=text_range,
+                encode_text_steps=int((tok != 0).sum(1).max()),
+                peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
+
+
 def parity_fp32(policy, ksplat, kconv) -> dict:
-    """fp32 parity mode at B=2 on the card vs the same port on the CPU."""
+    """fp32 parity mode at B=2 on the card vs the same port on the CPU,
+    over act, update_map, update_map, act: the maps at every step, and at
+    each act the waypoint, value, hidden state, semantic logits and
+    attention weights, each within 1e-3 of its range on the CPU."""
     from ws_mgmap_tpu_torch.tools.synthetic import wall_obs
     from ws_mgmap_tpu_torch.train.rollout import RolloutEngine
 
-    b, steps = 2, 3
+    b, steps = 2, 4
     gpu = RolloutEngine(policy, b)
     cpu = RolloutEngine(policy, b, device="cpu")
     gen = np.random.RandomState(7)
-    ksplat.splat_max.launches = 0
-    kconv.conv3x3_bn_relu_wgmma.launches = 0
-    kconv.conv3x3_bn_relu_direct.launches = 0
-    worst = 0.0
+    reset_launches(ksplat, kconv)
+    worst: dict[str, float] = {}
+
+    def hold(k, name, got, want):
+        # fp32 on both (TF32 off): sums in other orders and the rotations'
+        # fp32 coordinate rounding, well within 1e-3 of the range
+        scale = float(want.abs().max())
+        err = float((got.cpu() - want).abs().max())
+        worst[name] = max(worst.get(name, 0.0), err / scale)
+        if not err <= 1e-3 * scale:
+            raise AssertionError(f"fp32 parity step {k} {name}: {err} vs "
+                                 f"range {scale}")
+
     for k in range(steps):
         raw = wall_obs(b, 0.4 * k - 0.3, gen)
         for i, o in enumerate(raw):
@@ -582,28 +760,25 @@ def parity_fp32(policy, ksplat, kconv) -> dict:
             masks[:] = 0.0  # fresh episodes
         if k == 2:
             masks[0] = 0.0  # env 0 starts a new episode
-        ego_g = gpu.update_map(gpu.batch_obs(raw), masks).cpu()
-        ego_c = cpu.update_map(cpu.batch_obs(raw), masks)
-        glob_g, glob_c = gpu.global_map.cpu(), cpu.global_map
-        scale = float(glob_c.abs().max())
-        # fp32 on both (TF32 off): sums in other orders and the rotations'
-        # fp32 coordinate rounding, well within 1e-3 of the map's range
-        for name, g, c_ in (("ego", ego_g, ego_c), ("global", glob_g,
-                                                   glob_c)):
-            err = float((g - c_).abs().max())
-            worst = max(worst, err / scale)
-            if err > 1e-3 * scale:
-                raise AssertionError(f"fp32 parity step {k} {name}: "
-                                     f"{err} vs range {scale}")
-    if ksplat.splat_max.launches != steps:
-        raise AssertionError(f"fp32: splat launches "
-                             f"{ksplat.splat_max.launches} != {steps}")
-    launches = {"splat_max": ksplat.splat_max.launches,
-                **conv_launches(kconv)}
+        if k % 3:
+            hold(k, "ego_map", gpu.update_map(gpu.batch_obs(raw), masks),
+                 cpu.update_map(cpu.batch_obs(raw), masks))
+        else:
+            og = gpu.act(gpu.batch_obs(raw), masks)
+            oc = cpu.act(cpu.batch_obs(raw), masks)
+            for name in ("action", "value", "hidden", "pred_sem_map",
+                         "att_map", "ego_map"):
+                hold(k, name, getattr(og, name), getattr(oc, name))
+        hold(k, "global_map", gpu.global_map, cpu.global_map)
+    launches = launch_counts(ksplat, kconv)
+    if launches["splat_max"] != steps:
+        raise AssertionError(f"fp32: splat launches {launches['splat_max']}"
+                             f" != {steps}")
     if launches["conv_wgmma"] or launches["conv_direct"]:
         raise AssertionError(f"fp32 parity mode must keep the library conv: "
                              f"{launches}")
-    return dict(phase="fp32_parity", B=b, steps=steps,
+    return dict(phase="fp32_parity", B=b, steps=["act", "update_map",
+                                                 "update_map", "act"],
                 max_err_over_range=worst, launches=launches)
 
 
@@ -657,30 +832,36 @@ def main() -> int:
     emit(dict(phase="kernels", kernel="conv3x3_bn_relu", cases=conv_rows))
     conv_t = {}
     for b in PRODUCTION_B:
-        conv_t[b] = conv_per_step(conv_rows, b)
-        emit(conv_t[b])
+        for step in STEP_KINDS:
+            conv_t[b, step] = conv_per_step(conv_rows, b, step)
+            emit(conv_t[b, step])
     if args.sweep_tiles:
         for row in sweep_tiles(kconv, gen):
             emit(row)
 
-    # phase 3: the slice at full width, production mode
+    # phase 3: the map-update step at full width, production mode
     slice_rows = [drive_production(policy, b, ksplat, kconv)
                   for b in PRODUCTION_B]
     for r in slice_rows:
+        emit(r)
+    # phase 3b: the decision path (act + update_map) at full width
+    act_rows = [drive_act(policy, b, ksplat, kconv) for b in PRODUCTION_B]
+    for r in act_rows:
         emit(r)
 
     # phase 4: fp32 parity mode, card vs CPU
     emit(parity_fp32(random_policy(1, rotate_in_splat=False), ksplat, kconv))
 
-    # the kernels line: launches from the main-path runs of phase 3; times
-    # for one B=6 bf16 step (splat once, the 16 fused convs by call site);
+    # the kernels line: launches from the main-path runs of phases 3 and
+    # 3b; times for one B=6 bf16 map-update step (splat once, the 16 fused
+    # convs by call site; the act step's 20 are in its conv_per_step line);
     # the direct conv is off the main path and timed at the fp32 site
     sp = splat_rows[1]
-    conv6 = conv_t[6]
+    conv6 = conv_t[6, "update_map"]
     direct = next(r for r in conv_rows if r["dtype"] == "float32")
 
     def launched(key):
-        return sum(r["launches"][key] for r in slice_rows)
+        return sum(r["launches"][key] for r in slice_rows + act_rows)
 
     def bound_by(ops_ms, bytes_ms):
         return "operations" if ops_ms >= bytes_ms else "bytes"

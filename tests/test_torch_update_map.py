@@ -12,30 +12,19 @@ import numpy as np
 import pytest
 import torch
 
+from tests.torch_port_common import (init_policy_variables, jax_config,
+                                     port_config, port_policy)
 from ws_mgmap_tpu.models.policy import BasePolicy as JPolicy
-from ws_mgmap_tpu.models.policy import MGMapConfig as JConfig
 from ws_mgmap_tpu.ops import mapping as jmap
 from ws_mgmap_tpu.ops.pallas import conv as jconv
 from ws_mgmap_tpu.train.rollout import RolloutEngine as JEngine
 from ws_mgmap_tpu.utils.convert import export_torch_state
-from ws_mgmap_tpu_torch.models.policy import BasePolicy, MGMapConfig
-from ws_mgmap_tpu_torch.ops import mapping
+from ws_mgmap_tpu_torch.models.policy import BasePolicy
 from ws_mgmap_tpu_torch.ops.kernels import conv as kconv
 from ws_mgmap_tpu_torch.train.rollout import RolloutEngine
 from ws_mgmap_tpu_torch.utils.convert import from_jax_variables
 
 B = 2
-MAP = dict(ego_size=20, global_size=48, map_depth=8)
-WIDTH = 0.125  # 8-channel proj_feat == map_depth
-
-
-def _jax_cfg(rotate):
-    return JConfig(
-        vocab_size=50, instr_hidden=16, rgb_output_size=32,
-        depth_output_size=16, map_output_size=32, ego_map_size=20,
-        map_depth=8, hidden_size=64, unet_width=WIDTH,
-        mapper=jmap.MapperParams(**MAP, rotate_in_splat=rotate,
-                                 splat_backend="pallas" if rotate else "auto"))
 
 
 def _episode(rng):
@@ -66,16 +55,19 @@ def _episode(rng):
 
 @pytest.fixture(scope="module")
 def weights():
+    """The whole JAX policy's variables (``tests/torch_port_common.py``),
+    whose UNet, the only module the map-update step runs, is initialized
+    through ``update_map`` with its own non-trivial BN statistics and
+    affines."""
     rng = np.random.RandomState(31)
-    policy = JPolicy(_jax_cfg(False))
+    policy = JPolicy(jax_config())
     obs = {"rgb": jnp.zeros((1, 64, 64, 3)),
            "depth": jnp.zeros((1, 128, 128, 1)),
            "gps": jnp.zeros((1, 2)), "compass": jnp.zeros((1, 1))}
     init = jax.jit(lambda k: policy.init(
         k, obs, jnp.ones((1, 1)), jmap.init_global_map(1, policy.cfg.mapper),
         method=JPolicy.update_map))
-    variables = jax.tree.map(np.asarray, init(jax.random.PRNGKey(0)))
-    # non-trivial BN statistics and affines
+    unet = jax.tree.map(np.asarray, init(jax.random.PRNGKey(0)))
     for coll, leaf, make in (("batch_stats", "mean",
                               lambda s: rng.randn(*s) * 0.1),
                              ("batch_stats", "var",
@@ -88,33 +80,32 @@ def weights():
                     walk(v)
                 elif k == leaf:
                     tree[k] = make(v.shape).astype(np.float32)
-        walk(variables[coll])
+        walk(unet[coll])
+    variables = init_policy_variables(0)
+    for coll in ("params", "batch_stats"):
+        variables[coll]["net"]["rgb_encoder"] = unet[coll]["net"][
+            "rgb_encoder"]
     return variables
 
 
 def test_weight_carry_over(weights):
+    policy = BasePolicy(port_config())
+    shapes = {k: tuple(v.shape) for k, v in policy.state_dict().items()}
     sd = from_jax_variables(weights)
-    exported = export_torch_state(weights)
+    exported = export_torch_state(weights, reference_shapes=shapes)
     own = {k for k in sd if not k.endswith("num_batches_tracked")}
-    assert own == {k for k in exported if k.startswith("net.rgb_encoder.")}
+    assert own == set(exported)
+    assert any(k.startswith("net.rgb_encoder.") for k in own)
     for k in own:
         np.testing.assert_array_equal(sd[k].numpy(), exported[k], err_msg=k)
-    policy = BasePolicy(MGMapConfig(unet_width=WIDTH, map_depth=8,
-                                    mapper=mapping.MapperParams(**MAP)))
     policy.load_state_dict(sd, strict=True)
     assert set(policy.state_dict()) == set(sd)
 
 
 def _run(weights, rotate, bf16):
-    jcfg = _jax_cfg(rotate)
-    cfg = MGMapConfig(unet_width=WIDTH, map_depth=8,
-                      mapper=mapping.MapperParams(**MAP,
-                                                  rotate_in_splat=rotate))
-    policy = BasePolicy(cfg)
-    policy.load_state_dict(from_jax_variables(weights), strict=True)
-    jeng = JEngine(JPolicy(jcfg), weights, B,
+    jeng = JEngine(JPolicy(jax_config(rotate)), weights, B,
                    compute_dtype=jnp.bfloat16 if bf16 else None)
-    teng = RolloutEngine(policy, B, device="cpu",
+    teng = RolloutEngine(port_policy(weights, rotate), B, device="cpu",
                          compute_dtype=torch.bfloat16 if bf16 else None)
     if bf16:
         jconv.set_fused_conv_mode("on")

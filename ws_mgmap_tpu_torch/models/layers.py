@@ -25,6 +25,24 @@ def tbn(c: int) -> nn.BatchNorm2d:
     return nn.BatchNorm2d(c, eps=1e-5)
 
 
+def tgn(groups: int, c: int) -> nn.GroupNorm:
+    """``nn.GroupNorm(groups, c)`` (eps 1e-5)."""
+    return nn.GroupNorm(groups, c, eps=1e-5)
+
+
+def tdense(in_f: int, out_f: int, bias: bool = True) -> nn.Linear:
+    return nn.Linear(in_f, out_f, bias=bias)
+
+
+def tconv_transpose(in_c: int, out_c: int, kernel: int, stride: int,
+                    padding: int, bias: bool = False) -> nn.ConvTranspose2d:
+    """The JAX package's ``TConvTranspose``: its ``kernel_t`` leaf [kh, kw,
+    I, O] is this module's weight [I, O, kh, kw] spatially flipped (the
+    converter's ``kernel_t`` rule)."""
+    return nn.ConvTranspose2d(in_c, out_c, kernel, stride, padding,
+                              bias=bias)
+
+
 def max_pool_3x3s2(x: torch.Tensor) -> torch.Tensor:
     """``nn.MaxPool2d(kernel_size=3, stride=2, padding=1)``."""
     return F.max_pool2d(x, 3, 2, 1)

@@ -16,7 +16,7 @@ from ws_mgmap_tpu_torch.models.resnet import ResLayer
 from ws_mgmap_tpu_torch.ops.pooling import upsample_bilinear_x2_nchw
 
 
-class _Layer0(nn.Sequential):
+class Layer0(nn.Sequential):
     """Sequential(conv1 7x7 s2, bn1, relu) == resnet children[:3]."""
 
     def __init__(self, in_c: int, out_c: int = 64):
@@ -24,7 +24,7 @@ class _Layer0(nn.Sequential):
                          nn.ReLU())
 
 
-class _Layer1(nn.Module):
+class Layer1(nn.Module):
     """Sequential(maxpool, resnet.layer1) == resnet children[3:5]; the
     parameter-free max pool is index "0", so layer1's keys sit under "1"."""
 
@@ -47,8 +47,8 @@ class ResNetUNet(nn.Module):
                                  for c in (64, 128, 256, 512))
         self.conv_original_size0 = ConvBNReLU(n_channel_in, c64, 3, 1)
         self.conv_original_size1 = ConvBNReLU(c64, c64, 3, 1)
-        self.layer0 = _Layer0(n_channel_in, c64)
-        self.layer1 = _Layer1(c64)
+        self.layer0 = Layer0(n_channel_in, c64)
+        self.layer1 = Layer1(c64)
         self.layer2 = ResLayer(c64, c128, 2)
         self.layer3 = ResLayer(c128, c256, 2)
         self.layer4 = ResLayer(c256, c512, 2)

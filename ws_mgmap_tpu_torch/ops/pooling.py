@@ -31,3 +31,12 @@ def upsample_bilinear_x2_nhwc(x: torch.Tensor) -> torch.Tensor:
     """The same upsample on an NHWC tensor; the result is NHWC."""
     y = upsample_bilinear_x2_nchw(x.permute(0, 3, 1, 2))
     return y.permute(0, 2, 3, 1)
+
+
+def avg_pool2d_nhwc(x: torch.Tensor, kernel: int, stride: int
+                    ) -> torch.Tensor:
+    """``F.avg_pool2d`` (no padding) on an NHWC tensor; the result is
+    NHWC. A view of a channels_last NCHW tensor costs no copy either
+    way."""
+    y = F.avg_pool2d(x.permute(0, 3, 1, 2), kernel, stride)
+    return y.permute(0, 2, 3, 1)

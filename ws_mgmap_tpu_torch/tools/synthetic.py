@@ -1,6 +1,6 @@
 """Seeded inputs for the card drives (``chip_smoke.py`` and the profile
-tool): a full-width policy with random weights and "wall ahead"
-observations."""
+tool): a full-width policy with random weights, instructions and "wall
+ahead" observations."""
 from __future__ import annotations
 
 import numpy as np
@@ -11,10 +11,11 @@ from ws_mgmap_tpu_torch.ops.mapping import MapperParams
 
 
 def random_policy(seed: int, rotate_in_splat: bool) -> BasePolicy:
-    """The reference geometry at width 1 (224^2 RGB, 100^2 ego and 240^2
-    global maps, 64 channels), torch's default init from ``seed`` and
-    non-trivial BN statistics, with positive BN shifts so the features are
-    mostly non-zero after each ReLU."""
+    """The whole policy at the reference's widths (``MGMapConfig``'s
+    defaults: 224^2 RGB, 256^2 depth, 100^2 ego and 240^2 global maps with
+    64 channels, vocab 2504, hidden 512), torch's default init from
+    ``seed`` and non-trivial BN statistics, with positive BN shifts so the
+    features are mostly non-zero after each ReLU."""
     torch.manual_seed(seed)
     policy = BasePolicy(MGMapConfig(
         mapper=MapperParams(rotate_in_splat=rotate_in_splat)))
@@ -30,17 +31,32 @@ def random_policy(seed: int, rotate_in_splat: bool) -> BasePolicy:
     return policy
 
 
+def instruction_tokens(b: int, rng: np.random.RandomState,
+                       length: int = 200, vocab: int = 2504) -> np.ndarray:
+    """[b, length] int32 instructions: 20-120 word ids in [1, vocab) each,
+    then 0-padding."""
+    out = np.zeros((b, length), np.int32)
+    for i, n in enumerate(rng.randint(20, 121, b)):
+        out[i, :n] = rng.randint(1, vocab, n)
+    return out
+
+
 def wall_obs(b: int, compass: float, rng: np.random.RandomState,
-             depth: float = 0.3) -> list[dict]:
+             depth: float = 0.3, tokens: np.ndarray | None = None
+             ) -> list[dict]:
     """Raw observations of ``b`` agents at the origin facing a wall
-    ``depth`` * 10 m ahead (habitat depth is meters / 10), random RGB."""
+    ``depth`` * 10 m ahead (habitat depth is meters / 10), random RGB, and
+    ``tokens`` [b, L] as the instructions (drawn from ``rng`` by
+    :func:`instruction_tokens` when None)."""
+    if tokens is None:
+        tokens = instruction_tokens(b, rng)
     return [{
-        "instruction": np.arange(1, 9),
+        "instruction": tokens[i],
         "rgb": rng.randint(0, 255, (224, 224, 3)).astype(np.float32),
         "depth": np.full((256, 256, 1), depth, np.float32),
         "gps": np.zeros(2, np.float32),
         "compass": np.array([compass], np.float32),
-    } for _ in range(b)]
+    } for i in range(b)]
 
 
 def special_splat_inputs(rng: np.random.RandomState, p: int, c: int,

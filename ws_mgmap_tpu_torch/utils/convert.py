@@ -5,8 +5,10 @@ The port's own copy of the key and leaf rules of
 ``a.b.0.weight``; conv kernel [kh, kw, I, O] -> [O, I, kh, kw]; dense
 kernel [in, out] -> [out, in]; BN ``scale`` -> ``weight``,
 ``mean``/``var`` -> ``running_mean``/``running_var``; leaves named with a
-dot, and RNN weights, are stored in torch layout already). It reads plain
-nested dicts of numpy arrays, so it needs neither JAX nor flax.
+dot, and RNN weights, are stored in torch layout already; the raw
+[out, in] weights of the policy's two ``Conv1d(k=1)`` key layers get the
+trailing unit dimension of torch's [out, in, 1]). It reads plain nested
+dicts of numpy arrays, so it needs neither JAX nor flax.
 """
 from __future__ import annotations
 
@@ -27,8 +29,11 @@ LEAF_TO_TORCH = {
 
 _RNN_LEAVES = ("weight_ih", "weight_hh", "bias_ih", "bias_hh")
 
-# the torch-key prefixes of the modules this port has
-PORTED_PREFIXES = ("net.rgb_encoder.",)
+# the torch-key prefixes of the modules this port has: all of BasePolicy
+PORTED_PREFIXES = ("net.", "action_distribution.", "critic.", "prog_pred.")
+
+# MGMapNet's torch Conv1d(k=1) weights, which the JAX package keeps [out, in]
+CONV1D_WEIGHTS = ("state_text_k_layer.weight", "text_map_k_layer.weight")
 
 
 def _is_raw_torch_leaf(leaf: str) -> bool:
@@ -43,9 +48,11 @@ def _torch_key(path: tuple[str, ...]) -> str:
     return ".".join(list(mods) + [mapped])
 
 
-def _to_torch_leaf(a: np.ndarray, leaf: str) -> np.ndarray:
+def _to_torch_leaf(a: np.ndarray, leaf: str, key: str) -> np.ndarray:
     if _is_raw_torch_leaf(leaf) or leaf in ("scale", "bias", "mean", "var",
                                             "embedding"):
+        if key.endswith(CONV1D_WEIGHTS):
+            return a[..., None]  # raw dense [out, in] -> Conv1d [out, in, 1]
         return a
     if leaf == "kernel":
         if a.ndim == 4:  # conv [kh, kw, I, O] -> [O, I, kh, kw]
@@ -78,7 +85,7 @@ def from_jax_variables(tree: Mapping[str, Any],
             key = _torch_key(path)
             if not key.startswith(prefixes):
                 continue
-            arr = _to_torch_leaf(np.asarray(leaf), path[-1])
+            arr = _to_torch_leaf(np.asarray(leaf), path[-1], key)
             out[key] = torch.from_numpy(np.array(arr))
             if key.endswith(".running_mean"):
                 nbt = key[: -len("running_mean")] + "num_batches_tracked"
