@@ -21,7 +21,12 @@ the depth ResNet50, the map encoder / decoder / classifier, the
 instruction biLSTM once per episode, attention, the two GRUs and the
 heads). Production mode (bf16 + rotate-in-splat) runs at B=6 and B=24 on
 a "wall 3 m ahead" drive; the fp32 parity mode runs act and update_map at
-B=2 against the same port on the CPU.
+B=2 against the same port on the CPU. Last, the teacher-forcing training
+step (``train/step.py``: ``forward_seq`` over 5 episodes x 64 steps, the
+losses, backward, Adam with frozen trunks, train-mode BatchNorm) runs in
+fp32 at full width, launching none of the kernels, timed with remat off
+and on; one update at N=2, T=4 is held against the CPU, and a bf16 rollout
+engine built from the trained weights acts once.
 
 Each phase prints one JSON line; any failure raises, so the exit code is
 non-zero and no result line is printed. TF32 is off for cuDNN convolutions
@@ -32,6 +37,7 @@ file, the script fails.
 from __future__ import annotations
 
 import argparse
+import copy
 import ctypes
 import json
 import math
@@ -782,6 +788,150 @@ def parity_fp32(policy, ksplat, kconv) -> dict:
                 max_err_over_range=worst, launches=launches)
 
 
+# --------------------------------------------------------------------------
+# phase 5: the teacher-forcing training step at full width
+# --------------------------------------------------------------------------
+def frozen_snapshot(policy) -> dict:
+    from ws_mgmap_tpu_torch.train.step import trainable
+
+    return {k: p.detach().clone() for k, p in policy.named_parameters()
+            if not trainable(k)}
+
+
+def drive_train(ksplat, kconv) -> dict:
+    """The update at N=5, T=64, fp32 (TF32 off), random weights from a
+    seed: 6 updates on one fixed batch, the loss falling; then timed
+    updates with remat off and on (host clock around synchronized rounds;
+    peak memory of each mode); every kernel count read over all the
+    updates (all 0: train mode keeps the fused conv off and the batch
+    bypasses the mapping step) and the frozen trunks bit-identical; then
+    a bf16 rollout engine built from the trained weights acts once with 1
+    splat, 20 wgmma and 0 direct launches."""
+    from ws_mgmap_tpu_torch.tools.synthetic import (TRAIN_LENGTHS,
+                                                    random_policy,
+                                                    train_episodes, wall_obs)
+    from ws_mgmap_tpu_torch.train import step
+    from ws_mgmap_tpu_torch.train.losses import MonitorConfig
+    from ws_mgmap_tpu_torch.train.replay import collate_episodes
+    from ws_mgmap_tpu_torch.train.rollout import RolloutEngine
+
+    batch = collate_episodes(train_episodes(np.random.RandomState(11),
+                                            TRAIN_LENGTHS))
+    n, t = batch["weights"].shape
+    if (n, t) != (5, 64):
+        raise AssertionError(f"train batch [{n}, {t}], expected [5, 64]")
+    state = step.create_train_state(random_policy(2, rotate_in_splat=True))
+    frozen = frozen_snapshot(state.policy)
+    update = step.make_train_step(MonitorConfig())
+    reset_launches(ksplat, kconv)
+    metrics = [update(state, batch) for _ in range(6)]
+    losses = [float(m["loss"]) for m in metrics]
+    last = {k: float(v) for k, v in metrics[-1].items()}
+    if not (np.isfinite(losses).all() and all(np.isfinite(list(
+            last.values())))):
+        raise AssertionError(f"train: non-finite metrics {losses} {last}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"train: loss did not fall: {losses}")
+
+    timed = {}
+    for remat in (False, True):
+        fn = step.make_train_step(MonitorConfig(), remat=remat)
+        fn(state, batch)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms, ms_range = host_ms(lambda: fn(state, batch), 5, 2)
+        timed["remat" if remat else "plain"] = dict(
+            ms_per_update=ms, ms_per_update_range=ms_range,
+            frames_per_s=n * t * 1e3 / ms,
+            valid_frames_per_s=float(batch["weights"].sum()) * 1e3 / ms,
+            peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
+    launches = launch_counts(ksplat, kconv)
+    if any(launches.values()):
+        raise AssertionError(f"train: kernel launches {launches} over "
+                             f"{state.step} updates, expected none")
+    changed = [k for k, v in frozen_snapshot(state.policy).items()
+               if not torch.equal(v, frozen[k])]
+    if changed:
+        raise AssertionError(f"train: frozen parameters moved: {changed[:4]}")
+
+    b = PRODUCTION_B[0]
+    eng = RolloutEngine(state.policy, b, compute_dtype=torch.bfloat16)
+    obs = eng.batch_obs(wall_obs(b, 0.3, np.random.RandomState(12)))
+    reset_launches(ksplat, kconv)
+    out = eng.act(obs, np.zeros((b, 1)))
+    act_launches = launch_counts(ksplat, kconv)
+    want = {"splat_max": 1, "conv_wgmma": 20, "conv_direct": 0}
+    if act_launches != want:
+        raise AssertionError(f"act after training: launches {act_launches}, "
+                             f"expected {want}")
+    for name in ("action", "value", "prog", "hidden"):
+        if not bool(torch.isfinite(getattr(out, name)).all()):
+            raise AssertionError(f"act after training: non-finite {name}")
+    return dict(phase="train", N=n, T=t, frames=n * t,
+                valid_frames=int(batch["weights"].sum()), dtype="float32",
+                updates=state.step, losses=losses, last_metrics=last,
+                launches=launches, frozen_params=len(frozen),
+                frozen_unchanged=True, **timed,
+                act_after_training=dict(B=b, launches=act_launches))
+
+
+# card vs CPU gradients: fp32 rounding through train-mode BN alone moves
+# BN-coupled gradients by up to 7e-3 relative L2 when the episodes are
+# permuted (the JAX package's measurement, tests/test_train_step.py), and
+# by 1.2e-2 against float64 (tests/test_torch_train_step.py)
+TRAIN_GRAD_RTOL = 1e-2
+
+
+def parity_train() -> dict:
+    """One update at N=2, T=4, full width, on the card and on the CPU from
+    the same weights and batch: the loss within 1e-4 relative, and each
+    trainable parameter's gradient within ``TRAIN_GRAD_RTOL`` relative L2
+    of the CPU's, except where the CPU's gradient norm is below 1e-5 (a
+    conv bias feeding train-mode BN has zero true gradient: both sides are
+    rounding, and the card's must stay below 1e-4)."""
+    from ws_mgmap_tpu_torch.tools.synthetic import (random_policy,
+                                                    train_episodes)
+    from ws_mgmap_tpu_torch.train import step
+    from ws_mgmap_tpu_torch.train.losses import MonitorConfig
+    from ws_mgmap_tpu_torch.train.replay import collate_episodes
+
+    batch = collate_episodes(train_episodes(np.random.RandomState(13),
+                                            (4, 3)), t_bucket=4)
+    policy = random_policy(3, rotate_in_splat=False)
+    update = step.make_train_step(MonitorConfig())
+    grads, loss = {}, {}
+    for dev in ("cuda", "cpu"):
+        state = step.create_train_state(copy.deepcopy(policy), device=dev)
+        loss[dev] = float(update(state, batch)["loss"])
+        grads[dev] = {k: p.grad.detach().double().cpu()
+                      for k, p in state.policy.named_parameters()
+                      if p.grad is not None}
+    if grads["cuda"].keys() != grads["cpu"].keys():
+        raise AssertionError("train parity: different gradient sets")
+    loss_err = abs(loss["cuda"] - loss["cpu"]) / abs(loss["cpu"])
+    if not loss_err <= 1e-4:
+        raise AssertionError(f"train parity: loss {loss['cuda']} vs "
+                             f"{loss['cpu']}")
+    rel, degenerate = {}, 0
+    for k, want in grads["cpu"].items():
+        got, norm = grads["cuda"][k], float(want.norm())
+        if norm < 1e-5:
+            degenerate += 1
+            if not float(got.norm()) < 1e-4:
+                raise AssertionError(f"train parity: {k} degenerate on the "
+                                     f"CPU, norm {float(got.norm())} here")
+            continue
+        rel[k] = float((got - want).norm()) / norm
+    worst = dict(sorted(rel.items(), key=lambda kv: -kv[1])[:5])
+    if not max(rel.values()) <= TRAIN_GRAD_RTOL:
+        raise AssertionError(f"train parity: gradient rel L2 {worst}")
+    return dict(phase="train_parity", N=2, T=4, loss=loss["cuda"],
+                loss_rel_err=loss_err, grad_rel_l2_worst=worst,
+                grad_rel_l2_median=float(np.median(list(rel.values()))),
+                tolerance=TRAIN_GRAD_RTOL, tensors=len(grads["cpu"]),
+                degenerate=degenerate)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--sweep-tiles", action="store_true",
@@ -852,16 +1002,23 @@ def main() -> int:
     # phase 4: fp32 parity mode, card vs CPU
     emit(parity_fp32(random_policy(1, rotate_in_splat=False), ksplat, kconv))
 
-    # the kernels line: launches from the main-path runs of phases 3 and
-    # 3b; times for one B=6 bf16 map-update step (splat once, the 16 fused
-    # convs by call site; the act step's 20 are in its conv_per_step line);
-    # the direct conv is off the main path and timed at the fp32 site
+    # phase 5: the training step at full width, and its card-vs-CPU parity
+    train_row = drive_train(ksplat, kconv)
+    emit(train_row)
+    emit(parity_train())
+
+    # the kernels line: launches from the main-path runs of phases 3, 3b
+    # and 5 (the training step launches none); times for one B=6 bf16
+    # map-update step (splat once, the 16 fused convs by call site; the
+    # act step's 20 are in its conv_per_step line); the direct conv is off
+    # the main path and timed at the fp32 site
     sp = splat_rows[1]
     conv6 = conv_t[6, "update_map"]
     direct = next(r for r in conv_rows if r["dtype"] == "float32")
 
     def launched(key):
-        return sum(r["launches"][key] for r in slice_rows + act_rows)
+        return sum(r["launches"][key]
+                   for r in slice_rows + act_rows + [train_row])
 
     def bound_by(ops_ms, bytes_ms):
         return "operations" if ops_ms >= bytes_ms else "bytes"

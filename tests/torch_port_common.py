@@ -1,6 +1,7 @@
-"""Shared pieces of the port's act-path tests: a small policy configuration
-in both packages, JAX weights from ``init`` with non-trivial norm
-statistics, their carry-over into the port, and seeded raw observations.
+"""Shared pieces of the port's tests: a small policy configuration in
+both packages, JAX weights from ``init`` with non-trivial norm statistics,
+their carry-over into the port, seeded raw observations, and seeded
+replay episodes for the training step.
 
 Small widths: UNet width 0.125 over 64^2 RGB, 128^2 depth (a 2x2 depth
 trunk), a 20^2 ego map of 8 channels, hidden 64, vocab 50.
@@ -14,6 +15,7 @@ from ws_mgmap_tpu.models.policy import MGMapConfig as JConfig
 from ws_mgmap_tpu.ops import mapping as jmap
 from ws_mgmap_tpu_torch.models.policy import BasePolicy, MGMapConfig
 from ws_mgmap_tpu_torch.ops import mapping
+from ws_mgmap_tpu_torch.tools import synthetic
 from ws_mgmap_tpu_torch.utils.convert import from_jax_variables
 
 SMALL = dict(vocab_size=50, instr_hidden=16, rgb_output_size=32,
@@ -106,3 +108,15 @@ def raw_obs(rng, b: int, t: int, instr: np.ndarray) -> list[dict]:
             "compass": np.array([0.4 * t - 0.9 * i], np.float32),
         })
     return out
+
+
+def train_episodes(rng, lengths) -> list[dict]:
+    """Seeded replay episodes at the small widths (the card drives' own
+    generator, ``tools/synthetic.py::train_episodes``): 200-token
+    instructions of 20-120 words, a 20^2 ego map of 8 channels."""
+    return synthetic.train_episodes(rng, lengths, port_config())
+
+
+def jax_batch(batch: dict) -> dict:
+    """A collated numpy batch as JAX arrays (the trainer's device put)."""
+    return jax.tree.map(jnp.asarray, batch)

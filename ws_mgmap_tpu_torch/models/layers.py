@@ -1,11 +1,15 @@
-"""Building blocks with the reference's torch names (eval path only).
+"""Building blocks with the reference's torch names.
 
 Port of ``ws_mgmap_tpu/models/layers.py``. Modules take NCHW tensors,
 normally in ``torch.channels_last`` memory format, so that the fused
-kernel reads ``x.permute(0, 2, 3, 1)`` as a contiguous NHWC tensor.
+kernel reads ``x.permute(0, 2, 3, 1)`` as a contiguous NHWC tensor. In
+eval mode BatchNorm uses its running statistics and may be folded into
+the fused conv; in train mode it normalizes with the batch's statistics
+and updates the running ones by flax's rule (:class:`BatchNorm2d`).
 """
 from __future__ import annotations
 
+import contextlib
 import weakref
 
 import torch
@@ -20,9 +24,52 @@ def tconv(in_c: int, out_c: int, kernel: int, stride: int = 1,
     return nn.Conv2d(in_c, out_c, kernel, stride, padding, bias=bias)
 
 
-def tbn(c: int) -> nn.BatchNorm2d:
-    """``nn.BatchNorm2d`` (eps 1e-5); the port runs it in eval only."""
-    return nn.BatchNorm2d(c, eps=1e-5)
+class BatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` whose train mode follows flax's ``BatchNorm``
+    (momentum 0.9 on the old value, torch's 0.1): the batch statistics
+    are E[x] and E[x^2] - E[x]^2 (clipped at 0) over (N, H, W), and the
+    running variance takes this biased variance, where torch's takes the
+    unbiased one. The output is torch's train-mode batch norm. With
+    ``track_running_stats`` off (:func:`bn_stats_frozen`) train mode
+    leaves the running statistics as they are."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        if self.track_running_stats:
+            with torch.no_grad():
+                # at least fp32, as flax reduces
+                xf = x.to(torch.promote_types(x.dtype, torch.float32))
+                mean = xf.mean((0, 2, 3))
+                var = ((xf * xf).mean((0, 2, 3)) - mean * mean).clamp_(min=0)
+                m = self.momentum
+                self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
+                self.running_var.mul_(1.0 - m).add_(var, alpha=m)
+                self.num_batches_tracked.add_(1)
+        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
+                            self.eps)
+
+
+def tbn(c: int) -> BatchNorm2d:
+    """Flax-rule :class:`BatchNorm2d` (eps 1e-5, torch momentum 0.1)."""
+    return BatchNorm2d(c, eps=1e-5)
+
+
+@contextlib.contextmanager
+def bn_stats_frozen(module: nn.Module):
+    """Within the block, the train-mode :class:`BatchNorm2d` layers of
+    ``module`` normalize with batch statistics but do not update their
+    running ones: a recomputed forward (activation checkpointing) must not
+    count its batch twice."""
+    bns = [m for m in module.modules()
+           if isinstance(m, BatchNorm2d) and m.track_running_stats]
+    for m in bns:
+        m.track_running_stats = False
+    try:
+        yield
+    finally:
+        for m in bns:
+            m.track_running_stats = True
 
 
 def tgn(groups: int, c: int) -> nn.GroupNorm:
@@ -108,8 +155,9 @@ def fused_conv_bn(x: torch.Tensor, conv: nn.Conv2d, bn: nn.BatchNorm2d,
 
 def fusable(x_shape_nchw, dtype: torch.dtype, device: torch.device,
             conv: nn.Conv2d, training: bool) -> bool:
-    """The JAX gate for a conv of this module: eval only, padding 1, and
-    :func:`fused_conv_active` on the NHWC shape."""
+    """The JAX gate for a conv of this module: eval only (train-mode BN
+    normalizes with batch statistics and cannot be folded), padding 1,
+    and :func:`fused_conv_active` on the NHWC shape."""
     b, c, h, w = x_shape_nchw
     return (not training and conv.padding == (1, 1)
             and kconv.fused_conv_active((b, h, w, c), dtype, device,

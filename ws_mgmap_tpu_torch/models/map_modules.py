@@ -1,11 +1,12 @@
 """Map encoder, hallucination decoder and semantic classifier.
 
-Port of ``ws_mgmap_tpu/models/map_modules.py``, eval path, with the
-reference's torch keys. NCHW (channels_last) in and out. The decoder's
+Port of ``ws_mgmap_tpu/models/map_modules.py`` with the reference's
+torch keys. NCHW (channels_last) in and out. In eval mode the decoder's
 four 3x3 ``ConvBNReLU`` sites go through the fused conv kernel where the
 gate allows (bf16 on the card: ``csrc/conv3x3_wgmma.cu``), as in the JAX
 package; the encoder's convs, the decoder's 6x6 BasicBlocks and the
-classifier stay unfused there and here.
+classifier stay unfused there and here. In train mode every BatchNorm
+uses batch statistics (flax's rule) and nothing is fused.
 """
 from __future__ import annotations
 

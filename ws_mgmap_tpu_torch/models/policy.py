@@ -1,10 +1,14 @@
-"""MGMapNet + BasePolicy: the cross-modal waypoint policy (eval path).
+"""MGMapNet + BasePolicy: the cross-modal waypoint policy.
 
 Port of ``ws_mgmap_tpu/models/policy.py``: the configuration, the
 per-frame encoders (UNet, mapping step, depth ResNet50, map encoder /
 decoder / classifier, instruction biLSTM), the recurrent core (GRU1 ->
 text attention -> map attention -> GRU2) and the heads, for the decision
-step (``act``) and the map-only step (``update_map``). Module paths keep
+step (``act``), the map-only step (``update_map``) and teacher forcing
+over episode-major batches (``forward_seq``). Train mode
+(``policy.train()``) puts the map modules' BatchNorm on batch statistics,
+as JAX's ``train=True`` does; the UNet stays in eval mode, as JAX always
+runs it with ``train=False``. Module paths keep
 the reference's torch keys (``net.rgb_encoder.…``,
 ``net.state_encoder.rnn.weight_ih_l0``, ``action_distribution.…``), so a
 state_dict carries over by key. The hidden state is [2, B, H]: row 0 is
@@ -166,6 +170,12 @@ class MGMapNet(nn.Module):
             tdense(c.second_in_size, h), nn.ReLU())
         self._scale = 1.0 / math.sqrt(h // 2)
 
+    def train(self, mode: bool = True) -> "MGMapNet":
+        """Module mode, with the frozen UNet kept in eval mode."""
+        super().train(mode)
+        self.rgb_encoder.eval()
+        return self
+
     # -- frame-level encoders ------------------------------------------------
     def encode_rgb(self, obs: dict[str, torch.Tensor]):
         """(rgb_in [B, 256], proj_feat NHWC or None, bottleneck NHWC). A
@@ -287,6 +297,36 @@ class MGMapNet(nn.Module):
         return (features, hidden, frames.pred_sem_map, att_map,
                 frames.ego_map, new_global)
 
+    def seq(self, obs: dict[str, torch.Tensor], hidden0: torch.Tensor,
+            masks: torch.Tensor
+            ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """Teacher forcing over an episode-major batch: obs leaves [N, T,
+        ...], hidden0 [2, N, H], masks [N, T] (0 at an episode start). The
+        encoders run once over the N*T frames, then the recurrent core
+        steps over T. Returns (features [N, T, H], pred_sem [N, T, 2E', 2E',
+        classes], att_map [N, T, S])."""
+        n, t_steps = masks.shape[:2]
+        frames, _ = self.encode_frames(
+            {k: v.reshape(n * t_steps, *v.shape[2:]) for k, v in obs.items()})
+
+        def split(x):
+            return x.reshape(n, t_steps, *x.shape[1:])
+
+        # per-step views by unbind: its backward is one stack, where
+        # indexing [:, k] would write a full-size zero gradient per step
+        steps = zip(*(split(x).unbind(1) for x in (
+            frames.state_in, frames.map_embedding, frames.text,
+            frames.text_pad)), masks.unbind(1))
+        h1, h2 = hidden0[0], hidden0[1]
+        feats, atts = [], []
+        for state_in, map_emb, text, text_pad, mask in steps:
+            f = FrameFeatures(state_in, map_emb, text, text_pad, None, None)
+            h2, h1, att = self._core(f, h1, h2, mask)
+            feats.append(h2)
+            atts.append(att)
+        return (torch.stack(feats, 1), split(frames.pred_sem_map),
+                torch.stack(atts, 1))
+
     def update_map(self, obs: dict[str, torch.Tensor], masks: torch.Tensor,
                    global_map: torch.Tensor
                    ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -349,3 +389,17 @@ class BasePolicy(nn.Module):
         ``text_features`` bypass). The engine passes the tokens on the
         host, where the biLSTM's step count is read without a sync."""
         return self.net.instruction_encoder(tokens)
+
+    def forward_seq(self, obs: dict[str, torch.Tensor],
+                    hidden0: torch.Tensor, masks: torch.Tensor
+                    ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+        """Teacher forcing over [N, T, ...] batches (``MGMapNet.seq``):
+        (the Gaussian's mean [N, T, 2], not tanh'd; {"features",
+        "pred_sem_map", "att_map", "prog"})."""
+        features, pred_sem, att_map = self.net.seq(obs, hidden0, masks)
+        return self.action_distribution(features).mean, {
+            "features": features,
+            "pred_sem_map": pred_sem,
+            "att_map": att_map,
+            "prog": torch.tanh(self.prog_pred(features)),
+        }

@@ -1,8 +1,9 @@
-"""ResNet trunks (port of ``ws_mgmap_tpu/models/resnet.py``), eval path
-only: the torchvision-style ResNet18 blocks of the UNet and the map
-decoder (``BasicBlock``, ``ResLayer``, BatchNorm) and habitat's DD-PPO
+"""ResNet trunks (port of ``ws_mgmap_tpu/models/resnet.py``): the
+torchvision-style ResNet18 blocks of the UNet and the map decoder
+(``BasicBlock``, ``ResLayer``, BatchNorm: fused in eval mode where the
+gate allows, batch statistics in train mode) and habitat's DD-PPO
 ResNet50 of the depth encoder (``GNBottleneck``, ``GNLayer``,
-``DDPPOResNet``, GroupNorm)."""
+``DDPPOResNet``, GroupNorm, the same in either mode)."""
 from __future__ import annotations
 
 import torch

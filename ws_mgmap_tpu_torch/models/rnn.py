@@ -56,7 +56,8 @@ def lstm_cell(x: torch.Tensor, h: torch.Tensor, c: torch.Tensor,
 
 
 class TorchGRU(nn.Module):
-    """Single-layer GRU with torch parameters, one masked step a call."""
+    """Single-layer GRU with torch parameters: one masked step a call, or
+    a sequence (``seq``)."""
 
     def __init__(self, input_size: int, hidden_size: int):
         super().__init__()
@@ -74,6 +75,16 @@ class TorchGRU(nn.Module):
         h = gru_cell(x, h * mask.reshape(-1, 1), self.weight_ih_l0,
                      self.weight_hh_l0, self.bias_ih_l0, self.bias_hh_l0)
         return h, h
+
+    def seq(self, xs: torch.Tensor, h0: torch.Tensor, masks: torch.Tensor
+            ) -> tuple[torch.Tensor, torch.Tensor]:
+        """The masked step over time: xs [T, B, I], h0 [B, H], masks
+        [T, B, 1] -> (outputs [T, B, H], h_T)."""
+        h, ys = h0, []
+        for x, m in zip(xs, masks):
+            h, _ = self(x, h, m)
+            ys.append(h)
+        return torch.stack(ys), h
 
 
 class TorchBiLSTM(nn.Module):
@@ -119,9 +130,10 @@ class TorchBiLSTM(nn.Module):
         h = xs.new_zeros(2, b, self.hidden_size)
         c = torch.zeros_like(h)
         outs = []
-        for k in range(t):
-            h_new, c_new = lstm_cell(x2[:, :, k], h, c, w_ih, w_hh, b_ih,
-                                     b_hh)
+        # unbind, not x2[:, :, k]: its backward is one stack where each
+        # indexing's would write a full-size zero gradient per step
+        for k, x in enumerate(x2.unbind(2)):
+            h_new, c_new = lstm_cell(x, h, c, w_ih, w_hh, b_ih, b_hh)
             m = step_mask[:, k, None]
             h = torch.where(m, h_new, h)
             c = torch.where(m, c_new, c)
@@ -143,3 +155,7 @@ class RNNStateEncoder(nn.Module):
     def forward(self, x: torch.Tensor, h: torch.Tensor, masks: torch.Tensor
                 ) -> tuple[torch.Tensor, torch.Tensor]:
         return self.rnn(x, h, masks)
+
+    def seq(self, xs: torch.Tensor, h0: torch.Tensor, masks: torch.Tensor
+            ) -> tuple[torch.Tensor, torch.Tensor]:
+        return self.rnn.seq(xs, h0, masks)

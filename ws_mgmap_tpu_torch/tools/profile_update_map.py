@@ -1,19 +1,26 @@
-"""Where a rollout step's time goes on the card.
+"""Where a rollout step's or a training update's time goes on the card.
 
     python -m ws_mgmap_tpu_torch.tools.profile_update_map \
-        [--step update_map act] [--batch 6 24]
+        [--step update_map act train] [--batch 6 24]
 
 Drives ``RolloutEngine.update_map`` (the map-update step) or
 ``RolloutEngine.act`` (the decision step) at full width in the production
 mode (bf16 + rotate-in-splat, random weights from a seed, observations on
-the card, the instruction already encoded), then traces a few steps with
-``torch.profiler`` and prints one JSON line per step kind and batch: the
-host-clock ms/step, the device's busy time per step (the union of its
-kernels' intervals) and idle share, kernels per step, and device ms per
-step by kernel kind (``device_ms_by_kind``) and by the module that
-launched the kernel (``device_ms_by_module``: the hand-written kernels
-by name, every other kernel under the labelled module whose forward
-issued it, found through the profiler's op tree). Needs a CUDA card.
+the card, the instruction already encoded), or the teacher-forcing update
+(``train/step.py``, fp32 with TF32 off, the training cell of
+``tools/synthetic.py``: 5 episodes x 64 steps; ``--batch`` does not apply),
+then traces a few steps with ``torch.profiler`` and prints one JSON line
+per step kind and batch: the host-clock ms/step, the device's busy time
+per step (the union of its kernels' intervals) and idle share, kernels per
+step, and device ms per step by kernel kind (``device_ms_by_kind``) and
+by the module that launched the kernel (``device_ms_by_module``: the
+hand-written kernels by name, every other kernel under the labelled module
+whose forward issued it, found through the profiler's op tree; a backward
+kernel goes to the module of the forward op with its autograd sequence
+number; the update's batch upload, losses and Adam step have labels of
+their own). For the update, ``device_ms_backward`` is the share of the
+autograd engine's kernels. ``top_kernels_ms`` lists the 12 kernels with
+the most device time. Needs a CUDA card.
 """
 from __future__ import annotations
 
@@ -29,7 +36,11 @@ from torch.profiler import ProfilerActivity, profile
 
 from ws_mgmap_tpu_torch.models import policy as policy_mod
 from ws_mgmap_tpu_torch.models.policy import BasePolicy
-from ws_mgmap_tpu_torch.tools.synthetic import random_policy, wall_obs
+from ws_mgmap_tpu_torch.tools.synthetic import (TRAIN_LENGTHS, random_policy,
+                                                train_episodes, wall_obs)
+from ws_mgmap_tpu_torch.train import step as step_mod
+from ws_mgmap_tpu_torch.train.losses import MonitorConfig
+from ws_mgmap_tpu_torch.train.replay import collate_episodes
 from ws_mgmap_tpu_torch.train.rollout import RolloutEngine
 
 # kernel-name fragments -> kind, first match wins: the fused convs before
@@ -59,10 +70,14 @@ MODULES = [
                      "net.map_classified_linear", "net.map_cated_linear",
                      "net.map_linear")),
     ("RNN and attention", ("net._core",)),
+    ("biLSTM (instruction encoder)", ("net.instruction_encoder",)),
     ("heads", ("action_distribution", "critic", "prog_pred")),
     ("linears (rgb, depth)", ("net.rgb_linear", "net.depth_linear")),
 ]
 MAPPING_LABEL = "mapping chain (projection, registration)"
+LOSSES_LABEL, OPTIMIZER_LABEL = "losses", "optimizer (Adam)"
+UPLOAD_LABEL = "batch upload (host to device)"
+BACKWARD = "autograd::engine::evaluate_function"
 
 
 def _kind(name: str, kinds=KINDS) -> str | None:
@@ -112,32 +127,74 @@ def _busy_us(spans) -> float:
     return busy
 
 
-def _by_module(events, labels: set[str], steps: int) -> dict[str, float]:
-    """Device ms per step by module of the library kernels: each CPU op's
-    kernels go to the nearest range above the op named in ``labels``. The
-    hand-written kernels are left out (they are counted by name)."""
+def _ancestors(e):
+    while e is not None:
+        yield e
+        e = e.cpu_parent
+
+
+def _by_module(events, labels: set[str], steps: int
+               ) -> tuple[dict[str, float], float]:
+    """Device ms per step by module of the library kernels, and of the
+    backward pass's kernels: each CPU op's kernels go to the nearest range
+    above the op named in ``labels``; an op of the backward pass has none,
+    and goes to the label of the forward op with its autograd sequence
+    number. The hand-written kernels are left out (they are counted by
+    name)."""
+    cpu = [e for e in events
+           if e.device_type == torch.autograd.DeviceType.CPU]
+    # a forward op records the number the next autograd node will take,
+    # so the last op with a number is the one that made its node
+    seq_label = {}
+    for e in sorted(cpu, key=lambda e: e.time_range.start):
+        if e.sequence_nr >= 0 and not any(p.name.startswith(BACKWARD)
+                                          for p in _ancestors(e)):
+            seq_label[e.sequence_nr] = next(
+                (p.name for p in _ancestors(e) if p.name in labels), None)
     out: dict[str, float] = {}
-    for e in events:
-        if e.device_type != torch.autograd.DeviceType.CPU or not e.kernels:
+    backward = 0.0
+    for e in cpu:
+        if not e.kernels:
             continue
-        label, p = None, e
-        while p is not None and label is None:
-            label = p.name if p.name in labels else None
-            p = p.cpu_parent
+        chain = list(_ancestors(e))
+        label = next((p.name for p in chain if p.name in labels), None)
+        in_backward = any(p.name.startswith(BACKWARD) for p in chain)
+        if label is None and in_backward:
+            label = next((seq_label[p.sequence_nr] for p in chain
+                          if seq_label.get(p.sequence_nr)), None)
         for k in e.kernels:
             if _kind(k.name, OWN_KERNELS) is None:
                 group = label or "unlabelled"
                 out[group] = out.get(group, 0.0) + k.duration / 1e3 / steps
-    return out
+            if in_backward:
+                backward += k.duration / 1e3 / steps
+    return out, backward
 
 
-def profile_step(policy: BasePolicy, step: str, b: int, steps: int = 6
-                 ) -> dict:
+def rollout_step(policy: BasePolicy, step: str, b: int):
+    """One production step of the engine, its modules labelled."""
     eng = RolloutEngine(policy, b, compute_dtype=torch.bfloat16)
     label_modules(eng.policy)
     obs = eng.batch_obs(wall_obs(b, 0.2, np.random.RandomState(b)))
-    masks = np.ones((b, 1))
-    run = functools.partial(getattr(eng, step), obs, masks)
+    return functools.partial(getattr(eng, step), obs, np.ones((b, 1)))
+
+
+def train_update(policy: BasePolicy):
+    """One update of the training cell (fp32, TF32 off from here on, as
+    JAX trains in full fp32), its modules, losses and optimizer step
+    labelled; the policy becomes the train state's."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    state = step_mod.create_train_state(policy)
+    label_modules(state.policy)
+    state.optimizer.step = _labelled(state.optimizer.step, OPTIMIZER_LABEL)
+    batch = collate_episodes(train_episodes(np.random.RandomState(11),
+                                            TRAIN_LENGTHS))
+    update = step_mod.make_train_step(MonitorConfig())
+    return functools.partial(update, state, batch)
+
+
+def profile_step(run, step: str, b: int, steps: int = 6) -> dict:
     for _ in range(3):
         run()
     torch.cuda.synchronize()
@@ -151,19 +208,23 @@ def profile_step(policy: BasePolicy, step: str, b: int, steps: int = 6
     events = prof.events()
     # device events, less the labels' own ranges (the profiler mirrors a
     # record_function range onto the device timeline)
-    labels = {label for label, _ in MODULES} | {MAPPING_LABEL}
+    labels = ({label for label, _ in MODULES}
+              | {MAPPING_LABEL, LOSSES_LABEL, OPTIMIZER_LABEL, UPLOAD_LABEL})
     kernels = [e for e in events
                if e.device_type == torch.autograd.DeviceType.CUDA
                and e.name not in labels]
     by_kind: dict[str, float] = {}
+    by_name: dict[str, float] = {}
     spans = []
     for e in kernels:
         start, end = e.time_range.start, e.time_range.end
         spans.append((start, end))
         kind = _kind(e.name) or "other elementwise / copy"
-        by_kind[kind] = by_kind.get(kind, 0.0) + (end - start) / 1e3 / steps
+        ms = (end - start) / 1e3 / steps
+        by_kind[kind] = by_kind.get(kind, 0.0) + ms
+        by_name[e.name[:120]] = by_name.get(e.name[:120], 0.0) + ms
     total_ms = sum(by_kind.values())
-    by_module = _by_module(events, labels, steps)
+    by_module, backward_ms = _by_module(events, labels, steps)
     by_module.update({k: by_kind.get(k, 0.0) for k, _ in OWN_KERNELS})
     # device time the op tree does not link to a CPU op (copies, if any)
     by_module["not linked to an op"] = total_ms - sum(by_module.values())
@@ -181,12 +242,15 @@ def profile_step(policy: BasePolicy, step: str, b: int, steps: int = 6
             "idle_share": 1.0 - busy_ms / wall_ms,
             "kernels_per_step": len(kernels) / steps,
             "device_ms_by_kind": ordered(by_kind),
-            "device_ms_by_module": ordered(by_module)}
+            "device_ms_by_module": ordered(by_module),
+            "device_ms_backward": backward_ms,
+            "top_kernels_ms": dict(list(ordered(by_name).items())[:12])}
 
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--step", nargs="+", choices=("update_map", "act"),
+    ap.add_argument("--step", nargs="+",
+                    choices=("update_map", "act", "train"),
                     default=["update_map"])
     ap.add_argument("--batch", type=int, nargs="+", default=[6, 24])
     args = ap.parse_args()
@@ -195,9 +259,18 @@ def main() -> None:
     policy = random_policy(0, rotate_in_splat=True)
     policy_mod.rgb_mapping_step = _labelled(policy_mod.rgb_mapping_step,
                                             MAPPING_LABEL)
+    step_mod.total_loss = _labelled(step_mod.total_loss, LOSSES_LABEL)
+    step_mod.upload_batch = _labelled(step_mod.upload_batch, UPLOAD_LABEL)
     for step in args.step:
+        if step == "train":
+            n = len(TRAIN_LENGTHS)
+            print(json.dumps(profile_step(train_update(
+                random_policy(2, rotate_in_splat=True)), step, n, steps=2)),
+                flush=True)
+            continue
         for b in args.batch:
-            print(json.dumps(profile_step(policy, step, b)), flush=True)
+            print(json.dumps(profile_step(rollout_step(policy, step, b),
+                                          step, b)), flush=True)
 
 
 if __name__ == "__main__":

@@ -1,6 +1,6 @@
 """Seeded inputs for the card drives (``chip_smoke.py`` and the profile
-tool): a full-width policy with random weights, instructions and "wall
-ahead" observations."""
+tool): a full-width policy with random weights, instructions, "wall
+ahead" observations and replay episodes for the training step."""
 from __future__ import annotations
 
 import numpy as np
@@ -57,6 +57,49 @@ def wall_obs(b: int, compass: float, rng: np.random.RandomState,
         "gps": np.zeros(2, np.float32),
         "compass": np.array([compass], np.float32),
     } for i in range(b)]
+
+
+# the training cell: DAGGER.BATCH_SIZE = 5 episodes of 20-59 subsampled
+# steps, one of exactly 59, so T = 64 after the 16-step bucket (320 frames)
+TRAIN_LENGTHS = (59, 20, 37, 48, 26)
+
+
+def train_episodes(rng: np.random.RandomState, lengths,
+                   cfg: MGMapConfig = MGMapConfig()) -> list[dict]:
+    """Replay episodes of the given lengths (subsampled steps) as the
+    trainer stores them: per step the cached UNet bottleneck
+    (``rgb_features`` [7, 7, 512]) and depth trunk output
+    (``depth_features`` [4, 4, 128]), the ego map (``rgb_ego_map`` [E, E,
+    64], non-negative with most cells empty), the monitor targets
+    (``gt_semantic_map``, ``gt_path`` [E, E]; ``progress``), the oracle
+    ``waypoint``, and one instruction per episode (200 tokens, 20-120
+    words), float16 where the trainer narrows. E is ``cfg.ego_map_size``;
+    the feature widths follow ``cfg`` too."""
+    e, d = cfg.ego_map_size, cfg.map_depth
+    out = []
+    for n, tokens in zip(lengths, instruction_tokens(len(lengths), rng,
+                                                     vocab=cfg.vocab_size)):
+        ego = rng.rand(n, e, e, d).astype(np.float16)
+        ego[rng.rand(n, e, e) < 0.7] = 0.0
+        out.append({
+            "obs": {
+                "instruction": np.tile(tokens, (n, 1)),
+                "rgb_features": np.maximum(
+                    rng.randn(n, 7, 7, max(8, int(512 * cfg.unet_width))),
+                    0).astype(np.float16),
+                "depth_features": np.maximum(
+                    rng.randn(n, cfg.depth_spatial, cfg.depth_spatial,
+                              128), 0).astype(np.float16),
+                "rgb_ego_map": ego,
+                "gt_semantic_map": rng.randint(0, cfg.num_classes,
+                                               (n, e, e)).astype(np.int32),
+                "gt_path": (rng.rand(n, e, e) * 50).astype(np.float16),
+                "waypoint": rng.uniform(-0.9, 0.9, (n, 2)).astype(np.float32),
+                "progress": np.linspace(0, 1, n, dtype=np.float32)[:, None],
+            },
+            "prev_actions": rng.uniform(-1, 1, (n, 2)).astype(np.float32),
+        })
+    return out
 
 
 def special_splat_inputs(rng: np.random.RandomState, p: int, c: int,
