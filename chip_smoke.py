@@ -26,7 +26,19 @@ step (``train/step.py``: ``forward_seq`` over 5 episodes x 64 steps, the
 losses, backward, Adam with frozen trunks, train-mode BatchNorm) runs in
 fp32 at full width, launching none of the kernels, timed with remat off
 and on; one update at N=2, T=4 is held against the CPU, and a bf16 rollout
-engine built from the trained weights acts once.
+engine built from the trained weights acts once. Phase 6, data-parallel
+teacher forcing fed from the replay store: the training cell's episodes
+are written to a store with the port's writer (its backend printed) and
+read back through ``ReplayLoader``; in a one-rank NCCL group the
+data-parallel update (``make_train_step(distributed=True)``: global
+BatchNorm statistics and loss normalisers, one gradient all-reduce)
+matches the plain update from the same weights, and both are timed with
+the all-reduces counted; then ranks in subprocesses
+(``ws_mgmap_tpu_torch/tools/dist_train_check.py``), each fed its shard
+through its loader, match one process on the concatenated batch with
+bit-identical parameters: NCCL on up to 4 cards (then timed at N=5,
+T=200 per rank), or, on one card, two gloo ranks sharing it. No kernel
+launches in phase 6.
 
 Each phase prints one JSON line; any failure raises, so the exit code is
 non-zero and no result line is printed. TF32 is off for cuDNN convolutions
@@ -41,6 +53,7 @@ import copy
 import ctypes
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -932,6 +945,293 @@ def parity_train() -> dict:
                 degenerate=degenerate)
 
 
+# --------------------------------------------------------------------------
+# phase 6: data-parallel teacher forcing fed from the replay store
+# --------------------------------------------------------------------------
+DP_LOSS_RTOL = 1e-5  # loss and metrics, relative
+DP_STAT_TOL = 1e-5   # BN running statistics, absolute and relative
+DP_TIMEOUT_S = 600   # a launch of ranks that takes longer fails
+
+
+def write_store(directory: Path, episodes) -> str:
+    """``episodes`` into a store in ``directory`` with the port's writer;
+    returns the writer's backend."""
+    from ws_mgmap_tpu_torch.data.trajstore import TrajStoreWriter, pack_record
+
+    w = TrajStoreWriter(str(directory))
+    w.append_batch([pack_record(e) for e in episodes])
+    w.close()
+    return w.backend
+
+
+def update_errors(got: dict, want: dict) -> dict:
+    """One update's results against another's (``dist_train_check``'s
+    ``snapshot``): the worst relative metric error, the worst BN
+    statistics error (relative to 1 + |value|), each gradient's relative
+    L2 error (a degenerate direction, reference norm below 1e-5, is listed
+    where its norm here reaches 1e-4)."""
+    if got["metrics"].keys() != want["metrics"].keys():
+        raise AssertionError(f"metrics {sorted(got['metrics'])} vs "
+                             f"{sorted(want['metrics'])}")
+    if got["grads"].keys() != want["grads"].keys():
+        raise AssertionError("different gradient sets")
+    stats = [k for k in want["state"] if k.endswith(("running_mean",
+                                                     "running_var"))]
+    rel, degenerate, bad = {}, 0, []
+    for k, g in want["grads"].items():
+        norm = float(g.norm())
+        if norm < 1e-5:
+            degenerate += 1
+            if not float(got["grads"][k].norm()) < 1e-4:
+                bad.append(k)
+            continue
+        rel[k] = float((got["grads"][k].double() - g.double()).norm()) / norm
+    return dict(
+        metric_rel_err=max(abs(got["metrics"][k] - v) / abs(v)
+                           for k, v in want["metrics"].items()),
+        stat_err=max(float(((got["state"][k].double()
+                             - want["state"][k].double()).abs()
+                            / (1 + want["state"][k].double().abs())).max())
+                     for k in stats),
+        grad_rel_l2_max=max(rel.values()),
+        grad_rel_l2_worst=dict(sorted(rel.items(),
+                                      key=lambda kv: -kv[1])[:3]),
+        grad_rel_l2_median=float(np.median(list(rel.values()))),
+        degenerate=degenerate, degenerate_not_small=bad)
+
+
+def check_update(errs: dict, what: str, loss_rtol: float = DP_LOSS_RTOL,
+                 stat_tol: float = DP_STAT_TOL,
+                 grad_rtol: float = TRAIN_GRAD_RTOL) -> None:
+    """Raise unless ``errs`` (:func:`update_errors`) are within the
+    tolerances."""
+    if not (errs["metric_rel_err"] <= loss_rtol and errs["stat_err"]
+            <= stat_tol and errs["grad_rel_l2_max"] <= grad_rtol
+            and not errs["degenerate_not_small"]):
+        raise AssertionError(f"{what}: {errs} beyond metrics {loss_rtol}, "
+                             f"statistics {stat_tol}, gradients {grad_rtol}")
+
+
+def compare_update(got: dict, want: dict, what: str) -> dict:
+    """:func:`update_errors`, held to the fp32 tolerances."""
+    errs = update_errors(got, want)
+    check_update(errs, what)
+    return errs
+
+
+def ranks_identical(ranks: list, run: int, what: str) -> None:
+    for r, res in enumerate(ranks[1:], 1):
+        for k, v in ranks[0][run]["state"].items():
+            if not torch.equal(res[run]["state"][k], v):
+                raise AssertionError(f"{what}: rank {r}'s {k} differs from "
+                                     "rank 0's")
+
+
+def paired_overhead(plain: tuple, dp: tuple, batch: dict, rounds: int = 8,
+                    per_round: int = 2) -> dict:
+    """The distributed update's ms over the plain one's, timed in turns:
+    each pair of rounds (``per_round`` synchronized updates each, host
+    clock) runs the two in alternating order, and the overhead is the
+    median of the pairs' differences, with their range."""
+    def round_ms(state, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(per_round):
+            fn(state, batch)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / per_round
+
+    diffs = []
+    for i in range(rounds):
+        first, second = (plain, dp) if i % 2 == 0 else (dp, plain)
+        ms = {id(first): round_ms(*first)}
+        ms[id(second)] = round_ms(*second)
+        diffs.append(ms[id(dp)] - ms[id(plain)])
+    return dict(overhead_ms=float(np.median(diffs)),
+                overhead_ms_range=[min(diffs), max(diffs)],
+                overhead_pairs=rounds)
+
+
+def one_rank_nccl(batch: dict, tmp: Path) -> dict:
+    """A one-rank NCCL group in this process: the data-parallel update on
+    the loader's batch against the plain update (phase 5's) from the same
+    weights, in fp32 (the tolerances of ``compare_update``) and in float64
+    (the CPU tests' exact ones); both fp32 updates also against the
+    float64 plain one, to show each one's rounding. Then both fp32 updates
+    timed (median of 5 rounds of 2 each, with the all-reduces of one
+    update counted), and the overhead of the distributed one in 8 rounds
+    taken in turns (:func:`paired_overhead`)."""
+    import torch.distributed as dist
+
+    from ws_mgmap_tpu_torch.models.layers import BatchNorm2d
+    from ws_mgmap_tpu_torch.parallel import mesh
+    from ws_mgmap_tpu_torch.tools import dist_train_check as dtc
+    from ws_mgmap_tpu_torch.tools.synthetic import random_policy
+    from ws_mgmap_tpu_torch.train import step
+    from ws_mgmap_tpu_torch.train.losses import MonitorConfig
+
+    for k, v in (("WORLD_SIZE", "1"), ("RANK", "0"), ("LOCAL_RANK", "0")):
+        os.environ[k] = v
+    mesh.init_distributed(init_method=f"file://{tmp / 'rendezvous'}",
+                          timeout_s=DP_TIMEOUT_S)
+    try:
+        policy = random_policy(2, rotate_in_splat=False)
+        plain_fn = step.make_train_step(MonitorConfig())
+        dp_fn = step.make_train_step(MonitorConfig(), distributed=True)
+        results = {}
+        for dtype in (torch.float64, torch.float32):
+            b = dtc.cast_batch(batch, dtype)
+            plain = step.create_train_state(copy.deepcopy(policy).to(dtype))
+            dp = step.create_train_state(copy.deepcopy(policy).to(dtype))
+            mesh.replicate(dp.policy)
+            results["plain", dtype] = dtc.snapshot(plain, plain_fn(plain, b))
+            log: list = []
+            with dtc.logged_all_reduces(log):
+                results["dp", dtype] = dtc.snapshot(dp, dp_fn(dp, b))
+        n_bn = sum(isinstance(m, BatchNorm2d) and m.training
+                   for m in dp.policy.modules())
+        times = {"plain": dtc.timed_updates(plain, plain_fn, batch, 5, 2),
+                 "distributed": dtc.timed_updates(dp, dp_fn, batch, 5, 2)}
+        overhead = paired_overhead((plain, plain_fn), (dp, dp_fn), batch)
+        backend = dist.get_backend()
+    finally:
+        dist.destroy_process_group()
+    f32, f64 = torch.float32, torch.float64
+    errs = {"fp32": update_errors(results["dp", f32], results["plain", f32]),
+            "float64": update_errors(results["dp", f64],
+                                     results["plain", f64]),
+            "plain_fp32_vs_float64": update_errors(results["plain", f32],
+                                                   results["plain", f64]),
+            "dp_fp32_vs_float64": update_errors(results["dp", f32],
+                                                results["plain", f64])}
+    n, t = batch["weights"].shape
+    row = dict(phase="data_parallel", group=f"{backend} x1 (this process)",
+               N=n, T=t, dtype="float32", errors=errs,
+               allreduces=len(log), train_bn_layers=n_bn,
+               allreduces_formula="2 per train-mode BN + 3 loss + 1 bucket",
+               bucket_bytes=log[-1][0],
+               allreduce_bytes=sum(b for b, _ in log), **overhead,
+               **times)
+    try:
+        check_update(errs["fp32"], "one-rank NCCL vs plain, fp32")
+        check_update(errs["float64"], "one-rank NCCL vs plain, float64",
+                     1e-9, 1e-9, 1e-7)
+    except AssertionError:
+        emit(dict(row, failed=True))
+        raise
+    return row
+
+
+def dp_ranks(count: int, tmp: Path) -> list[dict]:
+    """Ranks in subprocesses (``dist_train_check``), full width, fp32,
+    random weights from a seed: each its shard of a store through its
+    ``ReplayLoader`` (``fixed_len``), N=2, T=4 per rank, against the plain
+    update of one process on the concatenated batch; the ranks'
+    parameters bit-identical. Over NCCL with ``min(count, 4)`` ranks, one
+    a card, then timed at the trainer's contract (N=5, T=200 per rank);
+    with one card, two gloo ranks sharing it (untimed)."""
+    from ws_mgmap_tpu_torch.tools import dist_train_check as dtc
+    from ws_mgmap_tpu_torch.tools.synthetic import train_episodes
+
+    world = min(count, 4) if count >= 2 else 2
+    group = (f"nccl x{world} (one card each)" if count >= 2
+             else "gloo x2 (sharing card 0)")
+    rng = np.random.RandomState(14)
+    write_store(tmp / "small", train_episodes(
+        rng, rng.randint(2, 5, 2 * world)))
+    runs = [dict(store="small", batch_size=2, max_len=4, dtype="float32",
+                 remat=False)]
+    if count >= 2:
+        write_store(tmp / "big", train_episodes(
+            rng, rng.randint(20, 60, 5 * world)))
+        runs.append(dict(store="big", batch_size=5, max_len=200,
+                         dtype="float32", remat=False, timed=[5, 2]))
+    spec = dict(weights=None, seed=3, device="cuda",
+                backend=None if count >= 2 else "gloo",
+                timeout_s=DP_TIMEOUT_S, runs=runs)
+    (tmp / "spec.json").write_text(json.dumps(spec))
+    t0 = time.perf_counter()
+    dtc.launch_ranks(world, tmp, DP_TIMEOUT_S, shared_card=count < 2)
+    launch_s = time.perf_counter() - t0
+    ranks = [torch.load(tmp / f"rank{r}.pt") for r in range(world)]
+    single = dtc.run_updates(dict(spec, runs=runs[:1]), tmp, None, world,
+                             torch.device("cuda"))[0]
+    errs = [compare_update(r[0], single, f"{group} rank {i} vs one process")
+            for i, r in enumerate(ranks)]
+    ranks_identical(ranks, 0, group)
+    rows = [dict(phase="data_parallel", group=group, count=count,
+                 N_per_rank=ranks[0][0]["N"], T=ranks[0][0]["T"],
+                 dtype="float32", launch_s=launch_s,
+                 worst=max(errs, key=lambda e: e["grad_rel_l2_max"]),
+                 allreduces=ranks[0][0]["allreduces"],
+                 bucket_bytes=ranks[0][0]["bucket_bytes"],
+                 launches=[run["launches"] for r in ranks for run in r])]
+    if count >= 2:
+        ranks_identical(ranks, 1, group)
+        timed = [r[1]["timed"] for r in ranks]
+        rows.append(dict(phase="data_parallel_timed", group=group,
+                         N_per_rank=ranks[0][1]["N"], T=ranks[0][1]["T"],
+                         dtype="float32", per_rank=timed,
+                         frames_per_s_total=sum(t["frames_per_s"]
+                                                for t in timed),
+                         all_reduce_share_max=max(t["all_reduce_share"]
+                                                  for t in timed)))
+    for r in ranks:
+        for run in r:
+            if any(run["launches"].values()):
+                raise AssertionError(f"{group}: kernel launches "
+                                     f"{run['launches']}")
+    return rows
+
+
+def drive_dp(ksplat, kconv) -> list[dict]:
+    """Phase 6: the phase 5 cell's episodes into a store and back through
+    ``ReplayLoader`` (exactly phase 5's collation, sorted by length), the
+    one-rank NCCL group against the plain update, then ranks in
+    subprocesses; 0 splat, wgmma and direct launches over every update."""
+    import tempfile
+
+    from ws_mgmap_tpu_torch.tools.synthetic import (TRAIN_LENGTHS,
+                                                    train_episodes)
+    from ws_mgmap_tpu_torch.train.replay import ReplayLoader, collate_episodes
+
+    reset_launches(ksplat, kconv)
+    with tempfile.TemporaryDirectory() as tmp_name:
+        tmp = Path(tmp_name)
+        episodes = train_episodes(np.random.RandomState(11), TRAIN_LENGTHS)
+        backend = write_store(tmp / "store", episodes)
+        loader = ReplayLoader(str(tmp / "store"), batch_size=5)
+        batches = list(loader)
+        want = collate_episodes(sorted(episodes, key=lambda e: len(
+            e["prev_actions"])))
+        if len(batches) != 1 or not _tree_equal(batches[0], want):
+            raise AssertionError("store: the loader's batch is not the "
+                                 "episodes' collation")
+        rows = [dict(phase="store", backend=backend,
+                     reader_backend=loader.reader.backend,
+                     episodes=len(episodes),
+                     store_bytes=sum(f.stat().st_size for f in
+                                     (tmp / "store").iterdir()),
+                     batch=list(batches[0]["weights"].shape))]
+        (tmp / "one").mkdir()
+        rows.append(one_rank_nccl(batches[0], tmp / "one"))
+        (tmp / "ranks").mkdir()
+        rows += dp_ranks(torch.cuda.device_count(), tmp / "ranks")
+    launches = launch_counts(ksplat, kconv)
+    if any(launches.values()):
+        raise AssertionError(f"data parallel: kernel launches {launches}")
+    rows[1]["count"] = torch.cuda.device_count()
+    rows[1]["launches"] = launches
+    return rows
+
+
+def _tree_equal(a, b) -> bool:
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_tree_equal(a[k], b[k])
+                                            for k in a)
+    return a.dtype == b.dtype and np.array_equal(a, b)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--sweep-tiles", action="store_true",
@@ -1006,6 +1306,10 @@ def main() -> int:
     train_row = drive_train(ksplat, kconv)
     emit(train_row)
     emit(parity_train())
+
+    # phase 6: data-parallel teacher forcing from the replay store
+    for row in drive_dp(ksplat, kconv):
+        emit(row)
 
     # the kernels line: launches from the main-path runs of phases 3, 3b
     # and 5 (the training step launches none); times for one B=6 bf16

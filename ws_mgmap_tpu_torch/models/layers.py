@@ -17,6 +17,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ws_mgmap_tpu_torch.ops.kernels import conv as kconv
+from ws_mgmap_tpu_torch.parallel import mesh
 
 
 def tconv(in_c: int, out_c: int, kernel: int, stride: int = 1,
@@ -31,11 +32,21 @@ class BatchNorm2d(nn.BatchNorm2d):
     running variance takes this biased variance, where torch's takes the
     unbiased one. The output is torch's train-mode batch norm. With
     ``track_running_stats`` off (:func:`bn_stats_frozen`) train mode
-    leaves the running statistics as they are."""
+    leaves the running statistics as they are.
+
+    With ``global_stats`` on (:func:`global_batch_stats`: the data-parallel
+    update) train mode normalizes with the statistics of every rank's
+    frames, as flax's BatchNorm does over a sharded batch: one
+    differentiable SUM all-reduce of [sum x, sum x^2, count] per layer
+    (its backward is a second one), then flax's normalization."""
+
+    global_stats = False
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
+        if self.global_stats:
+            return self._global_forward(x)
         if self.track_running_stats:
             with torch.no_grad():
                 # at least fp32, as flax reduces
@@ -48,6 +59,25 @@ class BatchNorm2d(nn.BatchNorm2d):
                 self.num_batches_tracked.add_(1)
         return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
                             self.eps)
+
+    def _global_forward(self, x: torch.Tensor) -> torch.Tensor:
+        c = self.num_features
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        count = xf.new_full((1,), xf.numel() // c)
+        sums = mesh.all_reduce_sum(torch.cat(
+            [xf.sum((0, 2, 3)), (xf * xf).sum((0, 2, 3)), count]))
+        mean = sums[:c] / sums[2 * c]
+        var = (sums[c:2 * c] / sums[2 * c] - mean * mean).clamp(min=0)
+        if self.track_running_stats:
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
+                self.running_var.mul_(1.0 - m).add_(var, alpha=m)
+                self.num_batches_tracked.add_(1)
+        shape = (1, c, 1, 1)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        y = (xf - mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
+        return y.to(x.dtype)
 
 
 def tbn(c: int) -> BatchNorm2d:
@@ -70,6 +100,21 @@ def bn_stats_frozen(module: nn.Module):
     finally:
         for m in bns:
             m.track_running_stats = True
+
+
+@contextlib.contextmanager
+def global_batch_stats(module: nn.Module):
+    """Within the block, the train-mode :class:`BatchNorm2d` layers of
+    ``module`` take their batch statistics over every rank of the process
+    group (over this process's frames alone without one)."""
+    bns = [m for m in module.modules() if isinstance(m, BatchNorm2d)]
+    for m in bns:
+        m.global_stats = True
+    try:
+        yield
+    finally:
+        for m in bns:
+            m.global_stats = False
 
 
 def tgn(groups: int, c: int) -> nn.GroupNorm:

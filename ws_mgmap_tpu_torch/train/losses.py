@@ -3,15 +3,25 @@
 Every monitor returns a per-sample loss vector; :func:`reduce_aux` applies
 the validity mask and the alpha weights. Tensors are episode-major
 ([N, T, ...]); the semantic logits are NHWC.
+
+In the data-parallel update (``total_loss(..., distributed=True)``) each
+rank holds a shard of the global batch and returns its part of the
+global loss: its sums over the global normalisers (the episode count,
+the masked frame count, the contrastive target's max and min), so the
+ranks' parts sum to the loss of the global batch. The normalisers come
+from collectives that every rank issues in the same order whatever its
+shard holds.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 
 from ws_mgmap_tpu_torch.ops.pooling import (interpolate_area_nhwc,
                                             interpolate_nearest_nhwc)
+from ws_mgmap_tpu_torch.parallel import mesh
 
 
 @dataclasses.dataclass(frozen=True)
@@ -42,13 +52,15 @@ class MonitorConfig:
 
 
 def action_loss(pred_mean: torch.Tensor, waypoint: torch.Tensor,
-                weights: torch.Tensor) -> torch.Tensor:
+                weights: torch.Tensor,
+                n_total: torch.Tensor | None = None) -> torch.Tensor:
     """Weighted waypoint MSE: pred_mean [N, T, 2] (the raw Gaussian mean),
     waypoint [N, T, 2], weights [N, T] (0 on padding);
-    mean_n(sum_t w * mse / sum_t w)."""
+    mean_n(sum_t w * mse / sum_t w). With ``n_total`` (the global episode
+    count), the sum over these episodes divided by it."""
     per_step = ((torch.tanh(pred_mean) - waypoint) ** 2).sum(-1)
     per_ep = (weights * per_step).sum(1) / weights.sum(1).clamp(min=1e-8)
-    return per_ep.mean()
+    return per_ep.mean() if n_total is None else per_ep.sum() / n_total
 
 
 def prediction_monitor(pred_sem_map: torch.Tensor,
@@ -64,14 +76,17 @@ def prediction_monitor(pred_sem_map: torch.Tensor,
 
 
 def contrastive_monitor(att_map: torch.Tensor, dis_map: torch.Tensor,
-                        tau: float) -> torch.Tensor:
+                        tau: float,
+                        d_range: tuple[torch.Tensor, torch.Tensor] | None
+                        = None) -> torch.Tensor:
     """KL(softened GT-path distribution || text-to-map attention):
     att_map [B, S] (a softmax already), dis_map [B, E, E] the distance
     transform of the GT path. Returns [B]. The distance map is normalised
-    by the max and min of the whole batch, as the reference does."""
+    by the max and min of the whole batch, as the reference does
+    (``d_range`` = (max, min) of the global batch, when given)."""
     feature_size = int(round(att_map.shape[-1] ** 0.5))
     d = dis_map.float()
-    dmax, dmin = d.max(), d.min()
+    dmax, dmin = (d.max(), d.min()) if d_range is None else d_range
     target = (dmax - d) / (dmax - dmin).clamp(min=1e-8)
     target = interpolate_area_nhwc(target[..., None],
                                    (feature_size, feature_size))[..., 0]
@@ -89,27 +104,58 @@ def progress_monitor(prog: torch.Tensor, progress_target: torch.Tensor
 
 
 def reduce_aux(losses: dict[str, tuple[torch.Tensor, float]],
-               mask: torch.Tensor) -> torch.Tensor:
+               mask: torch.Tensor,
+               denom: torch.Tensor | None = None) -> torch.Tensor:
     """The masked, weighted sum of per-sample monitors, summed in key
-    order: losses name -> (per_sample [B], alpha); mask [B] bool."""
+    order: losses name -> (per_sample [B], alpha); mask [B] bool. Each
+    masked sum is divided by ``denom``: the global masked count, or by
+    default this mask's."""
     total = 0.0
-    denom = mask.float().sum().clamp(min=1e-8)
+    if denom is None:
+        denom = mask.float().sum().clamp(min=1e-8)
     for _, (vec, alpha) in sorted(losses.items()):
         total = total + alpha * (vec * mask.to(vec.dtype)).sum() / denom
     return total
 
 
+MONITORS = ("prediction_monitor", "contrastive_monitor", "progress_monitor")
+
+
+def _switched_on(mon: MonitorConfig) -> list[str]:
+    return [name for name, on in zip(
+        MONITORS, (mon.prediction, mon.contrastive, mon.progress)) if on]
+
+
 def total_loss(pred_mean: torch.Tensor, aux_out: dict[str, torch.Tensor],
                batch: dict[str, torch.Tensor], weights: torch.Tensor,
-               mon: MonitorConfig
+               mon: MonitorConfig, distributed: bool = False
                ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
     """The teacher-forcing objective: the action loss plus the monitors
     whose switch is on and whose target the batch (episode-major obs,
-    ``waypoint`` [N, T, 2] included) holds. Returns (loss, metrics)."""
-    n, t = weights.shape
-    a_loss = action_loss(pred_mean, batch["waypoint"][..., :2], weights)
+    ``waypoint`` [N, T, 2] included) holds. Returns (loss, metrics).
 
+    ``distributed``: this batch is one rank's shard. The loss is then this
+    rank's part of the global batch's loss, and the metrics (detached) are
+    the global batch's, the same on every rank. Three collectives, in this
+    order on every rank: the SUM of the episode and masked frame counts,
+    the MAX of the GT path's max and negated min (when the contrastive
+    monitor is on), the SUM of the metrics' parts."""
+    n, t = weights.shape
     flat_mask = (weights > 0).reshape(n * t)
+    n_total = count = d_range = None
+    if distributed:
+        counts = mesh.sum_no_grad(torch.stack(
+            [weights.new_tensor(float(n)), flat_mask.to(weights.dtype).sum()]))
+        n_total, count = counts[0], counts[1].clamp(min=1e-8)
+        if mon.contrastive:
+            d = batch["gt_path"].float() if "gt_path" in batch else None
+            r = mesh.max_no_grad(
+                torch.full((2,), -math.inf, device=weights.device)
+                if d is None else torch.stack([d.max(), -d.min()]))
+            d_range = (r[0], -r[1])
+
+    a_loss = action_loss(pred_mean, batch["waypoint"][..., :2], weights,
+                         n_total)
     aux = {}
     if mon.prediction and "gt_semantic_map" in batch:
         ps = aux_out["pred_sem_map"]
@@ -124,7 +170,7 @@ def total_loss(pred_mean: torch.Tensor, aux_out: dict[str, torch.Tensor],
             contrastive_monitor(
                 aux_out["att_map"].reshape(n * t, -1),
                 batch["gt_path"].reshape(n * t, *batch["gt_path"].shape[2:]),
-                mon.contrastive_tau),
+                mon.contrastive_tau, d_range),
             mon.contrastive_alpha)
     if mon.progress and "progress" in batch:
         aux["progress_monitor"] = (
@@ -132,9 +178,21 @@ def total_loss(pred_mean: torch.Tensor, aux_out: dict[str, torch.Tensor],
                              batch["progress"].reshape(n * t, -1)[:, :1]),
             mon.progress_alpha)
 
-    aux_total = (reduce_aux(aux, flat_mask) if aux
+    aux_total = (reduce_aux(aux, flat_mask, count) if aux
                  else a_loss.new_zeros(()))
     loss = a_loss + aux_total
+    if distributed:
+        names = _switched_on(mon)
+        masked = [(aux[k][0] * flat_mask).sum() if k in aux
+                  else loss.new_zeros(()) for k in names]
+        parts = mesh.sum_no_grad(torch.stack(
+            [loss, a_loss, aux_total] + [m.to(loss.dtype) for m in masked]))
+        metrics = {"loss": parts[0], "action_loss": parts[1],
+                   "aux_loss": parts[2]}
+        for k, v in zip(names, parts[3:]):
+            if k in aux:
+                metrics[k] = v / count
+        return loss, metrics
     metrics = {"loss": loss, "action_loss": a_loss, "aux_loss": aux_total}
     count = flat_mask.float().sum().clamp(min=1e-8)
     for k, (vec, _) in aux.items():

@@ -1,15 +1,181 @@
-"""Episode records -> episode-major training batches.
+"""Replay pipeline: episode records -> episode-major training batches.
 
-The port's copy of ``collate_episodes`` from ``ws_mgmap_tpu/train/replay.py``
-(plain numpy), so that tests and ``chip_smoke.py`` build batches exactly as
-the trainer does. The replay loader and the trajectory store, which
-belong to the trainer's data pipeline, are not ported yet.
+The port's copy of ``ws_mgmap_tpu/train/replay.py`` (plain numpy) on the
+port's trajectory store (``data/trajstore.py``):
+  * writer side: the temporal subsample ``steps[24::3]`` after the
+    look-around spin, the 25..200-step length filter and dtype narrowing
+    (:func:`episode_to_record`);
+  * reader side (:class:`ReplayLoader`): contiguous rank index ranges, a
+    block shuffle seeded per epoch, length-sorted batches, a background
+    thread that decodes and collates ahead of the consumer;
+  * collate (:func:`collate_episodes`): episode-major [N, T, ...] padded
+    with 1.0, zero weights on padding, not-done masks 0 at t=0.
+On the same store, seed, rank and world size the loader yields the JAX
+package's batches bit for bit.
 """
 from __future__ import annotations
 
-from typing import Any, Sequence
+import glob
+import os
+import queue
+import random
+import threading
+from typing import Any, Iterator, Sequence
 
 import numpy as np
+
+from ws_mgmap_tpu_torch.data.trajstore import (TrajStoreReader, pack_record,
+                                               unpack_record)
+
+NARROW_DTYPES = {
+    "vln_oracle_action_sensor": np.uint8,
+    "rgb_ego_map": np.float16,
+    "gt_path": np.float16,
+    "rgb": np.uint8,
+    "depth": np.float16,
+    "rgb_features": np.float16,
+    "depth_features": np.float16,
+    "gt_semantic_map": np.int32,
+}
+
+# observations a stored episode does not keep
+EPISODE_OBS_DROP = ("heading", "compass", "gps")
+
+
+def narrow_obs(obs: dict[str, np.ndarray]) -> dict[str, np.ndarray]:
+    """Each observation in its stored dtype (:data:`NARROW_DTYPES`)."""
+    out = {}
+    for k, v in obs.items():
+        v = np.asarray(v)
+        out[k] = v.astype(NARROW_DTYPES[k]) if k in NARROW_DTYPES else v
+    return out
+
+
+def episode_to_record(
+    steps: list[tuple[dict[str, np.ndarray], np.ndarray, np.ndarray]],
+    spin_steps: int = 24,
+    step_num: int = 3,
+    min_len: int = 25,
+    max_len: int = 200,
+    ep_id: str | None = None,
+) -> bytes | None:
+    """(obs, prev_action, oracle_waypoint) per simulator step -> a packed
+    record of ``steps[spin_steps::step_num]``, or None when the episode
+    has more than ``max_len`` or fewer than ``min_len`` steps. ``ep_id``
+    (collection with unique-episode dedup) is stored in the record."""
+    if len(steps) > max_len or len(steps) < min_len:
+        return None
+    sub = steps[spin_steps::step_num]
+    if not sub:
+        return None
+    obs_keys = [k for k in sub[0][0] if k not in EPISODE_OBS_DROP]
+    obs = {k: np.stack([np.asarray(s[0][k]) for s in sub]) for k in obs_keys}
+    record = {
+        "obs": narrow_obs(obs),
+        "prev_actions": np.stack([s[1] for s in sub]).astype(np.float32),
+        "oracle_actions": np.stack([s[2] for s in sub]).astype(np.float32),
+    }
+    if ep_id is not None:
+        record["ep_id"] = str(ep_id)
+    return pack_record(record)
+
+
+def _block_shuffle(items: list[int], block_size: int,
+                   rng: random.Random) -> list[int]:
+    """``items`` cut into blocks of ``block_size``, the blocks shuffled."""
+    blocks = [items[i:i + block_size] for i in range(0, len(items), block_size)]
+    rng.shuffle(blocks)
+    return [x for b in blocks for x in b]
+
+
+class ReplayLoader:
+    """Iterates collated batches over a trajectory store directory.
+
+    Rank ``rank`` of ``world_size`` reads records [per * rank, per * (rank
+    + 1)) with per = len // world_size; each epoch (each ``iter``)
+    block-shuffles them with ``random.Random(seed + epoch)`` into batches
+    of ``batch_size`` episodes, sorted by length within the batch. Every
+    rank must hand the update batches of one shape when world_size > 1:
+    ``fixed_len`` pads each to ``max_len`` steps.
+    """
+
+    def __init__(
+        self,
+        directory: str,
+        batch_size: int,
+        rank: int = 0,
+        world_size: int = 1,
+        max_len: int = 200,
+        seed: int = 0,
+        drop_last: bool = True,
+        fixed_len: bool = False,
+    ):
+        self.reader = TrajStoreReader(directory)
+        self.batch_size = batch_size
+        self.rank = rank
+        self.world_size = world_size
+        self.max_len = max_len
+        self.fixed_len = fixed_len
+        self.seed = seed
+        self.drop_last = drop_last
+        self._epoch = 0
+
+    def __len__(self) -> int:
+        per = len(self.reader) // self.world_size
+        return per // self.batch_size if self.drop_last else -(-per // self.batch_size)
+
+    def _drop_page_cache(self):
+        """Advise the kernel to drop the store's cached pages before an
+        epoch (``posix_fadvise`` DONTNEED), as the reference does."""
+        for shard in glob.glob(os.path.join(self.reader.directory,
+                                            "shard_*.bin")):
+            try:
+                fd = os.open(shard, os.O_RDONLY)
+                try:
+                    os.posix_fadvise(fd, 0, 0, os.POSIX_FADV_DONTNEED)
+                finally:
+                    os.close(fd)
+            except OSError:
+                pass
+
+    def _batches(self) -> Iterator[dict[str, Any]]:
+        rng = random.Random(self.seed + self._epoch)
+        self._epoch += 1
+        self._drop_page_cache()
+        per = len(self.reader) // self.world_size
+        start = per * self.rank
+        order = _block_shuffle(list(range(start, start + per)),
+                               self.batch_size, rng)
+        for i in range(0, len(order), self.batch_size):
+            chunk = order[i:i + self.batch_size]
+            if self.drop_last and len(chunk) < self.batch_size:
+                break
+            eps = [unpack_record(self.reader.get(j)) for j in chunk]
+            eps.sort(key=lambda e: e["prev_actions"].shape[0])
+            yield collate_episodes(eps, self.max_len,
+                                   fixed_len=self.fixed_len)
+
+    def __iter__(self) -> Iterator[dict[str, Any]]:
+        """One epoch; a background thread decodes and collates up to two
+        batches ahead of the consumer."""
+        q: queue.Queue = queue.Queue(maxsize=2)
+        sentinel = object()
+
+        def producer():
+            try:
+                for b in self._batches():
+                    q.put(b)
+            finally:
+                q.put(sentinel)
+
+        t = threading.Thread(target=producer, daemon=True)
+        t.start()
+        while True:
+            item = q.get()
+            if item is sentinel:
+                break
+            yield item
+        t.join()
 
 
 def collate_episodes(episodes: Sequence[dict[str, Any]],

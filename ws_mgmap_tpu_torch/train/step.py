@@ -12,7 +12,14 @@ JAX. The map modules' BatchNorm statistics move once per update.
 Where JAX's step is a pure function of its state, the port's state is the
 policy (parameters and BN statistics), the optimizer (Adam's moments) and
 the update count, and :func:`make_train_step`'s update changes it in place.
-Data parallelism (JAX's ``jit_train_step``) is not ported yet.
+
+``make_train_step(..., distributed=True)`` is JAX's ``jit_train_step``
+over a ``dp`` mesh: each rank of the process group (``parallel/mesh.py``)
+updates on its shard of the global batch, and together they compute the
+global batch's update: train-mode BatchNorm over every rank's frames
+(``layers.global_batch_stats``), the losses over the global normalisers
+(``losses.total_loss(..., distributed=True)``), and one SUM all-reduce of
+the gradients, after which Adam steps identically on every rank.
 """
 from __future__ import annotations
 
@@ -24,8 +31,10 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from ws_mgmap_tpu_torch.models.layers import bn_stats_frozen
+from ws_mgmap_tpu_torch.models.layers import (bn_stats_frozen,
+                                              global_batch_stats)
 from ws_mgmap_tpu_torch.models.policy import BasePolicy
+from ws_mgmap_tpu_torch.parallel import mesh
 from ws_mgmap_tpu_torch.train.losses import MonitorConfig, total_loss
 from ws_mgmap_tpu_torch.utils.device import resolve_device
 
@@ -86,7 +95,8 @@ def upload_batch(batch: dict[str, Any], device: torch.device
     return out
 
 
-def make_train_step(monitors: MonitorConfig, remat: bool = False
+def make_train_step(monitors: MonitorConfig, remat: bool = False,
+                    distributed: bool = False
                     ) -> Callable[[TrainState, dict[str, Any]],
                                   dict[str, torch.Tensor]]:
     """Returns update(state, batch) -> metrics (0-dim tensors on the
@@ -102,7 +112,20 @@ def make_train_step(monitors: MonitorConfig, remat: bool = False
     pass recomputes it. The recompute normalizes with the same batch
     statistics but leaves the running ones alone, so they move once per
     update, as in JAX.
+
+    ``distributed=True``: ``batch`` is this rank's shard of the global
+    batch (every rank's of the same shape: the loader's ``fixed_len``),
+    and the process group must be initialized
+    (:func:`mesh.init_distributed`), with every rank's state equal
+    (:func:`mesh.replicate`). The metrics are the global batch's. Every
+    rank issues the same collectives in the same order: the BatchNorm
+    layers' in module order, the losses' three, then, in the backward, the
+    BatchNorm layers' again in reverse (with ``remat``, the recompute's
+    forward ones first), and last the gradients' one bucket.
     """
+    if distributed and not mesh.group_active():
+        raise RuntimeError("distributed=True needs a process group: call "
+                           "mesh.init_distributed first")
 
     def update(state: TrainState, batch: dict[str, Any]
                ) -> dict[str, torch.Tensor]:
@@ -116,16 +139,22 @@ def make_train_step(monitors: MonitorConfig, remat: bool = False
         def forward(obs):
             return policy.forward_seq(obs, h0, masks)
 
-        if remat:
-            pred, aux_out = checkpoint(
-                forward, obs, use_reentrant=False,
-                context_fn=lambda: (contextlib.nullcontext(),
-                                    bn_stats_frozen(policy)))
-        else:
-            pred, aux_out = forward(obs)
-        loss, metrics = total_loss(pred, aux_out, obs, weights, monitors)
-        state.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
+        with (global_batch_stats(policy) if distributed
+              else contextlib.nullcontext()):
+            if remat:
+                pred, aux_out = checkpoint(
+                    forward, obs, use_reentrant=False,
+                    context_fn=lambda: (contextlib.nullcontext(),
+                                        bn_stats_frozen(policy)))
+            else:
+                pred, aux_out = forward(obs)
+            loss, metrics = total_loss(pred, aux_out, obs, weights, monitors,
+                                       distributed)
+            state.optimizer.zero_grad(set_to_none=True)
+            loss.backward()
+        if distributed:
+            mesh.sum_gradients_(p for group in state.optimizer.param_groups
+                                for p in group["params"])
         state.optimizer.step()
         state.step += 1
         return {k: v.detach() for k, v in metrics.items()}
