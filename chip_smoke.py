@@ -38,7 +38,21 @@ the all-reduces counted; then ranks in subprocesses
 through its loader, match one process on the concatenated batch with
 bit-identical parameters: NCCL on up to 4 cards (then timed at N=5,
 T=200 per rank), or, on one card, two gloo ranks sharing it. No kernel
-launches in phase 6.
+launches in phase 6. Phase 7, checkpoint evaluation on FakeSim: the
+config tree from the port's ``CMA_AUG.yaml`` (its own YAML reader), the
+FakeSim split, forkserver env workers (none may hold a CUDA context) and
+``evaluate`` over the card's ``RolloutEngine``: the production run (bf16
++ rotate-in-splat, 5 workers holding 1 to 5 of 15 episodes of at most
+120 steps, so that envs pause and the batch falls from 5 to 1; every
+episode ends, JAX's metric keys finite, both metric JSONs written; wall
+time, episodes/s, env steps/s, a loop step split into the env step,
+batch_obs, act and update_map, peak memory, the splat and wgmma launches);
+an fp32 run at B=2 where a CPU engine with the same weights gets the same
+batches and masks in lockstep (each decision's waypoint and prog, each
+step's ego and global map within 1e-3 of the range); a ``use_ddppo`` run
+with the DD-PPO controller on the CPU in 2 workers; and the controller's
+``act`` on the card against the CPU at B=4. Every batch and dtype that
+phase 7 runs the kernels at must be one that phase 2 held them at.
 
 Each phase prints one JSON line; any failure raises, so the exit code is
 non-zero and no result line is printed. TF32 is off for cuDNN convolutions
@@ -212,15 +226,24 @@ def splat_case(ksplat, name: str, feats, ids, timed: bool = True) -> dict:
 
 
 def check_splat(ksplat, gen, policy) -> list[dict]:
-    """Four synthetic cases, the B=6 and B=24 steps of the wall spin, and
-    edge values (NaN, infinities, signed zeros, maxima <= -1e16)."""
+    """Five timed synthetic cases (the last at the production eval's
+    batch), untimed ones at the other batches of phase 7 (bf16 at 1-4 as
+    its envs pause, fp32 at 1-2 for its lockstep run), the B=6 and B=24
+    steps of the wall spin, and edge values (NaN, infinities, signed
+    zeros, maxima <= -1e16)."""
     from ws_mgmap_tpu_torch.tools.synthetic import special_splat_inputs
 
     rows = []
     for b, dtype in ((6, torch.float32), (6, torch.bfloat16),
-                     (24, torch.bfloat16), (13, torch.bfloat16)):
+                     (24, torch.bfloat16), (13, torch.bfloat16),
+                     (EVAL_PROCESSES, torch.bfloat16)):
         feats, ids = splat_inputs(b, dtype, gen)
         rows.append(splat_case(ksplat, "synthetic", feats, ids))
+    for b, dtype in ([(b, torch.bfloat16) for b in EVAL_B[:-1]]
+                     + [(1, torch.float32), (2, torch.float32)]):
+        feats, ids = splat_inputs(b, dtype, gen)
+        rows.append(splat_case(ksplat, "synthetic, eval batch", feats, ids,
+                               timed=False))
     for b in PRODUCTION_B:
         feats, ids = wall_spin_splat_inputs(policy, b)
         rows.append(splat_case(ksplat, "wall spin", feats, ids))
@@ -350,6 +373,10 @@ CONV_PER_STEP = {"update_map": 16, "act": 20}
 # output may then round one bf16 ulp (2^-7 relative) apart
 CONV_TOL = {torch.bfloat16: (2**-7, 1e-3), torch.float32: (1e-4, 1e-4)}
 PRODUCTION_B = (6, 24)  # the production drives' batches
+EVAL_PROCESSES = 5  # the production eval's env workers, its first batch
+# phase 7's batches: its envs pause one by one (checked, the last timed)
+EVAL_B = tuple(range(1, EVAL_PROCESSES + 1))
+CONV_B = PRODUCTION_B + (EVAL_PROCESSES,)  # the timed batches
 
 
 def conv_launches(kconv) -> dict:
@@ -397,11 +424,12 @@ def cudnn_call(x, x2, w, scale, bias, residual):
     return library
 
 
-def conv_case(kconv, name, h, c1, c2, co, res, dtype, b, gen):
+def conv_case(kconv, name, h, c1, c2, co, res, dtype, b, gen,
+              timed: bool = True):
     """One call site: the kernel that the dispatch picks vs the twin (and
-    which kernel it was), then the times of that kernel (weights in its
-    own layout, as the UNet passes them), the twin, cuDNN, and at bf16 the
-    direct kernel too."""
+    which kernel it was), then, if ``timed``, the times of that kernel
+    (weights in its own layout, as the UNet passes them), the twin, cuDNN,
+    and at bf16 the direct kernel too."""
     x, x2, w, scale, bias, residual = conv_operands(h, c1, c2, co, res,
                                                     dtype, b, gen)
     variant = kconv.conv_variant(dtype, c1, c2, co)
@@ -420,6 +448,15 @@ def conv_case(kconv, name, h, c1, c2, co, res, dtype, b, gen):
         raise AssertionError(f"conv {name} B={b} {dtype}: max_abs_err "
                              f"{float(diff.max())} beyond rtol {rtol} "
                              f"atol {atol}")
+    row = dict(site=name, H=h, C1=c1, C2=c2, Co=co, residual=res, B=b,
+               dtype=str(dtype).split(".")[-1], variant=variant,
+               max_abs_err=float(diff.max()), tol_rtol_atol=[rtol, atol])
+    if variant == "wgmma":
+        grid = kconv.wgmma_grid(b, h, h, c1 + c2, co)
+        row.update(tile_th_bn=list(kconv.wgmma_tile(b, h, h, c1 + c2, co)),
+                   grid=list(grid), blocks=math.prod(grid))
+    if not timed:
+        return row
 
     iters = 10 if h >= 112 else 30
     wk = kconv.kernel_weight(w, variant)
@@ -430,16 +467,13 @@ def conv_case(kconv, name, h, c1, c2, co, res, dtype, b, gen):
     lib, _ = cuda_ms(cudnn_call(x, x2, w, scale, bias, residual), iters)
     extra = {}
     if variant == "wgmma":  # the direct kernel on the same call, for scale
-        grid = kconv.wgmma_grid(b, h, h, c1 + c2, co)
-        blocks = math.prod(grid)
         extra = dict(
             direct_ms=cuda_ms(lambda: kconv.conv3x3_bn_relu_direct(
                 x, w, scale, bias, True, residual, x2), iters)[0],
-            tile_th_bn=list(kconv.wgmma_tile(b, h, h, c1 + c2, co)),
-            grid=list(grid), blocks=blocks,
             # wgmma_tile's branch: below MIN_BLOCKS no tile keeps two
             # thirds of the SMs busy, and the one with the most blocks wins
-            tile_rule=("fewest L2 bytes" if blocks >= kconv.MIN_BLOCKS
+            tile_rule=("fewest L2 bytes"
+                       if row["blocks"] >= kconv.MIN_BLOCKS
                        else "most blocks"))
     esz = x.element_size()
     flops = 2.0 * b * h * h * 9 * (c1 + c2) * co
@@ -447,21 +481,21 @@ def conv_case(kconv, name, h, c1, c2, co, res, dtype, b, gen):
                     + got.numel() + (0 if residual is None else
                                      residual.numel())) + 8 * co
     bound = bound_ms(nbytes, flops, dtype)
-    return dict(site=name, H=h, C1=c1, C2=c2, Co=co, residual=res, B=b,
-                dtype=str(dtype).split(".")[-1], variant=variant,
-                max_abs_err=float(diff.max()), tol_rtol_atol=[rtol, atol],
-                ms=kern, host_ms=host, plain_ms=plain, library_ms=lib,
+    return dict(row, ms=kern, host_ms=host, plain_ms=plain, library_ms=lib,
                 gflop=flops / 1e9,
                 tflops=flops / kern / 1e9,
                 share_of_bound=bound["bound_ms"] / kern, **extra, **bound)
 
 
 def check_conv(kconv, gen) -> list[dict]:
-    """The wgmma kernel at every call site at both production batches (its
-    tile, and so its template instance and grid, depends on the batch),
+    """The wgmma kernel at every call site at both production batches and
+    the production eval's first (its tile, and so its template instance
+    and grid, depends on the batch), untimed at phase 7's other batches,
     the direct kernel at an fp32 and a ragged-channel shape."""
     rows = [conv_case(kconv, *site[:6], torch.bfloat16, b, gen)
-            for b in PRODUCTION_B for site in CONV_SITES]
+            for b in CONV_B for site in CONV_SITES]
+    rows += [conv_case(kconv, *site[:6], torch.bfloat16, b, gen, timed=False)
+             for b in EVAL_B if b not in CONV_B for site in CONV_SITES]
     rows.append(conv_case(kconv, "layer1 conv+res fp32", 56, 64, 0, 64,
                           True, torch.float32, 6, gen))
     rows.append(conv_case(kconv, "ragged 96+32->70 bf16", 28, 96, 32, 70,
@@ -1232,6 +1266,556 @@ def _tree_equal(a, b) -> bool:
     return a.dtype == b.dtype and np.array_equal(a, b)
 
 
+# --------------------------------------------------------------------------
+# phase 7: checkpoint evaluation on FakeSim
+# --------------------------------------------------------------------------
+EVAL_CAP = 120    # MAX_EPISODE_STEPS of the production run
+PARITY_CAP = 30   # the lockstep run: the look-around and two decisions
+DDPPO_CAP = 40
+EVAL_TOL = 1e-3   # of each output's range on the CPU, as in phase 4
+METRIC_KEYS = ("distance_to_goal", "success", "spl", "ndtw", "path_length",
+               "oracle_success", "oracle_navigation_error", "oracle_spl",
+               "steps_taken", "sdtw")
+
+
+def eval_config(processes: int, episodes: int, cap: int, *, bf16: bool,
+                use_ddppo: bool = False, scenes: int | None = None):
+    """The config a checkpoint's evaluation runs with, as the JAX trainer
+    builds it (``trainer.py:474-519``): the port's ``CMA_AUG.yaml``,
+    ``refine_config``, then the eval split, unshuffled, at most 11 envs.
+    Cut to ``episodes`` FakeSim episodes on ``scenes`` scenes (by default
+    one each; ``construct_envs`` deals whole scenes to the envs), of at
+    most ``cap`` steps. bf16 is the production mode (``ROLLOUT_BF16`` +
+    rotate-in-splat)."""
+    from ws_mgmap_tpu_torch.config.default import get_config, refine_config
+
+    cfg = refine_config(get_config("ws_mgmap_tpu_torch/config/CMA_AUG.yaml"))
+    if not (Path(cfg.BASE_TASK_CONFIG_PATH).is_file()
+            and cfg.TASK_CONFIG.DATASET.SPLIT == "train_aug"):
+        raise AssertionError(f"the task config {cfg.BASE_TASK_CONFIG_PATH} "
+                             "was not read")
+    cfg = cfg.clone()
+    cfg.defrost()
+    cfg.TASK_CONFIG.DATASET.SPLIT = cfg.EVAL.SPLIT
+    cfg.TASK_CONFIG.ENVIRONMENT.ITERATOR_OPTIONS.SHUFFLE = False
+    cfg.NUM_PROCESSES = min(processes, 11)
+    cfg.TASK_CONFIG.ENVIRONMENT.MAX_EPISODE_STEPS = cap
+    cfg.TASK_CONFIG.DATASET.FAKE_EPISODES = episodes
+    cfg.TASK_CONFIG.DATASET.FAKE_SCENES = scenes or episodes
+    cfg.EVAL.EPISODE_COUNT = episodes
+    cfg.MODEL.ROLLOUT_BF16 = bf16
+    cfg.MODEL.RGBMAPPING.rotate_in_splat = bf16
+    cfg.use_ddppo = use_ddppo
+    cfg.freeze()
+    return cfg
+
+
+def holds_card(pid: int) -> bool:
+    """Whether process ``pid`` has a device file of the card open (a CUDA
+    context opens /dev/nvidiactl and /dev/nvidia<N>; importing torch opens
+    none)."""
+    fd_dir = Path(f"/proc/{pid}/fd")
+    for fd in fd_dir.iterdir():
+        try:
+            if os.readlink(fd).startswith("/dev/nvidia"):
+                return True
+        except FileNotFoundError:  # closed while we looked
+            continue
+    return False
+
+
+class TimedEnvs:
+    """The vector env ``evaluate`` builds, timing ``step`` and ``reset``
+    on the host clock; on its first step it notes which workers hold the
+    card (none may)."""
+
+    def __init__(self, envs):
+        self.envs = envs
+        self.step_ms: list[float] = []
+        self.reset_ms: list[float] = []
+        self.env_steps = 0
+        self.worker_pids = [p.pid for p in envs._procs]
+        self.on_card: list[int] | None = None
+
+    def __getattr__(self, name):
+        return getattr(self.envs, name)
+
+    def reset(self):
+        t0 = time.perf_counter()
+        out = self.envs.reset()
+        self.reset_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    def step(self, inputs):
+        if self.on_card is None:
+            self.on_card = [p for p in self.worker_pids if holds_card(p)]
+        t0 = time.perf_counter()
+        out = self.envs.step(inputs)
+        self.step_ms.append((time.perf_counter() - t0) * 1e3)
+        self.env_steps += len(inputs)
+        return out
+
+
+class TimedEngine:
+    """``evaluate``'s view of a ``RolloutEngine``, timing each call:
+    ``batch_obs`` (stack and upload) on the host clock between
+    synchronisations; ``act`` and ``update_map`` on the host clock and by
+    CUDA events around them (their device span, read after the run)."""
+
+    def __init__(self, engine):
+        self.engine = engine
+        self.host_ms: dict[str, list[float]] = {
+            "batch_obs": [], "act": [], "update_map": []}
+        self.events: dict[str, list] = {"act": [], "update_map": []}
+        self.batch_sizes: list[int] = []
+
+    @property
+    def prog(self):
+        return self.engine.prog
+
+    def reset_state(self, num_envs: int) -> None:
+        self.engine.reset_state(num_envs)
+
+    def keep(self, keep) -> None:
+        self.engine.keep(keep)
+
+    def batch_obs(self, observations):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        batch = self.engine.batch_obs(observations)
+        torch.cuda.synchronize()
+        self.host_ms["batch_obs"].append((time.perf_counter() - t0) * 1e3)
+        return batch
+
+    def _timed(self, kind: str, fn, batch, masks):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        out = fn(batch, masks)
+        end.record()
+        self.host_ms[kind].append((time.perf_counter() - t0) * 1e3)
+        self.events[kind].append((start, end, len(masks)))
+        self.batch_sizes.append(len(masks))
+        return out
+
+    def act(self, batch, masks):
+        return self._timed("act", self.engine.act, batch, masks)
+
+    def update_map(self, batch, masks):
+        return self._timed("update_map", self.engine.update_map, batch, masks)
+
+    def device_ms(self) -> dict[str, list[float]]:
+        torch.cuda.synchronize()
+        return {k: [s.elapsed_time(e) for s, e, _ in v]
+                for k, v in self.events.items()}
+
+    def device_ms_by_batch(self) -> dict[str, dict[int, float]]:
+        """The median device span of each kind of call at each batch."""
+        out = {}
+        for kind, ms in self.device_ms().items():
+            batches = [b for *_, b in self.events[kind]]
+            out[kind] = median_by(ms, batches)
+        return out
+
+
+def median_by(values: list[float], keys: list[int]) -> dict[int, float]:
+    """The median of ``values`` for each key, keys in order."""
+    return {k: float(np.median([v for v, kk in zip(values, keys) if kk == k]))
+            for k in sorted(set(keys))}
+
+
+def run_eval(cfg, engine, metric_dir: str, dataset=None, gt=None
+             ) -> tuple[dict, TimedEnvs, float]:
+    """``evaluate`` with env workers on ``dataset`` (by default the
+    config's FakeSim split, made before the clock starts), its vector env
+    timed; returns the aggregate, the timed envs and the wall seconds of
+    the loop, the workers' start included."""
+    from ws_mgmap_tpu_torch.env.vector_env import construct_envs
+    from ws_mgmap_tpu_torch.train.evaluator import evaluate
+    from ws_mgmap_tpu_torch.train.trainer import load_split
+
+    split = cfg.EVAL.SPLIT
+    if dataset is None:
+        dataset, gt = load_split(cfg, split)
+    t0 = time.perf_counter()
+    envs = TimedEnvs(construct_envs(cfg, dataset, gt, auto_reset_done=False,
+                                    workers=True))
+    agg = evaluate(cfg, engine, dataset, gt,
+                   episode_count=len(dataset.episodes),
+                   log_fn=lambda s: print(s, flush=True),
+                   metric_dir=metric_dir, split=split, envs=envs)
+    return agg, envs, time.perf_counter() - t0
+
+
+def check_eval(cfg, agg: dict, metric_dir: str, envs: TimedEnvs,
+               n: int, what: str) -> dict:
+    """Each of the split's ``n`` episodes ended once, the aggregate holds
+    JAX's metric keys, each finite, both JSONs were written, and no
+    worker held a CUDA context."""
+    split = cfg.EVAL.SPLIT
+    files = sorted(os.listdir(metric_dir))
+    want_files = sorted([f"each_stat_ckpt_0_{split}.json",
+                         f"stats_ckpt_0_{split}.json"])
+    if files != want_files:
+        raise AssertionError(f"{what}: metric files {files}")
+    each = json.loads((Path(metric_dir) / want_files[0]).read_text())
+    written = json.loads((Path(metric_dir) / want_files[1]).read_text())
+    if len(each) != n:
+        raise AssertionError(f"{what}: {len(each)} episodes ended, not {n}")
+    if written != agg or not all(
+            k in agg and math.isfinite(agg[k]) for k in METRIC_KEYS):
+        raise AssertionError(f"{what}: aggregate {agg}")
+    if max(m["steps_taken"] for m in each.values()) > \
+            cfg.TASK_CONFIG.ENVIRONMENT.MAX_EPISODE_STEPS:
+        raise AssertionError(f"{what}: an episode outran the cap")
+    # the check can see a context: this process holds one
+    if envs.on_card is None or envs.on_card or not holds_card(os.getpid()):
+        raise AssertionError(f"{what}: workers holding the card "
+                             f"{envs.on_card}, this process "
+                             f"{holds_card(os.getpid())}")
+    return dict(episodes_ended=len(each), metrics=agg,
+                steps_taken=sorted(m["steps_taken"] for m in each.values()),
+                workers=len(envs.worker_pids), workers_holding_card=0)
+
+
+def uneven_split(cfg):
+    """The production split: ``EVAL_PROCESSES`` FakeSim scenes, one to
+    each env worker, the i-th (in scene order) cut to its first i + 1
+    episodes. An env pauses when its episodes are done, so the batch
+    falls from 5 to 1 as the run goes on (rounds of 5, 4, 3, 2 and 1 envs
+    where every episode runs to the cap)."""
+    from ws_mgmap_tpu_torch.env.dataset import VLNCEDataset
+    from ws_mgmap_tpu_torch.train.trainer import load_split
+
+    dataset, gt = load_split(cfg, cfg.EVAL.SPLIT)
+    scenes = dataset.scenes()
+    if len(scenes) != EVAL_PROCESSES:
+        raise AssertionError(f"{len(scenes)} scenes for {EVAL_PROCESSES} "
+                             "envs")
+    episodes = []
+    for i, scene in enumerate(scenes):
+        own = [e for e in dataset.episodes if e.scene_id == scene]
+        if len(own) < i + 1:
+            raise AssertionError(f"scene {scene}: {len(own)} episodes")
+        episodes += own[:i + 1]
+    return VLNCEDataset(episodes, dataset.vocab), gt
+
+
+def eval_production(ksplat, kconv) -> dict:
+    """The production eval: bf16 + rotate-in-splat, 5 env workers over
+    ``uneven_split``'s 15 episodes. Times the loop and splits a loop step
+    into the env step (workers), batch_obs (stack and upload), act and
+    update_map; counts every launch (act: 1 splat, 20 wgmma; update_map:
+    1, 16); checks that envs paused on the card (the batch fell)."""
+    import tempfile
+
+    from ws_mgmap_tpu_torch.env.vector_env import worker_threads
+    from ws_mgmap_tpu_torch.models.policy import MGMapConfig
+    from ws_mgmap_tpu_torch.tools.synthetic import random_policy
+    from ws_mgmap_tpu_torch.train.rollout import RolloutEngine
+
+    cfg = eval_config(EVAL_PROCESSES, EVAL_PROCESSES ** 2, EVAL_CAP,
+                      bf16=True, scenes=EVAL_PROCESSES)
+    dataset, gt = uneven_split(cfg)
+    n = len(dataset.episodes)
+    policy = random_policy(0, rotate_in_splat=True)
+    if MGMapConfig.from_config(cfg.MODEL) != policy.cfg:
+        raise AssertionError("the eval config describes another model")
+    torch.cuda.reset_peak_memory_stats()
+    engine = TimedEngine(RolloutEngine(policy, cfg.NUM_PROCESSES,
+                                       compute_dtype=torch.bfloat16))
+    with tempfile.TemporaryDirectory() as tmp:
+        reset_launches(ksplat, kconv)
+        agg, envs, wall = run_eval(cfg, engine, tmp, dataset, gt)
+        launches = launch_counts(ksplat, kconv)
+        row = check_eval(cfg, agg, tmp, envs, n, "production eval")
+    dev = engine.device_ms()
+    acts, maps = len(dev["act"]), len(dev["update_map"])
+    loop_steps = len(envs.step_ms)
+    want = {"splat_max": acts + maps, "conv_wgmma": 20 * acts + 16 * maps,
+            "conv_direct": 0}
+    if launches != want or loop_steps != acts + maps:
+        raise AssertionError(f"production eval: launches {launches}, "
+                             f"expected {want} over {loop_steps} steps")
+    if min(engine.batch_sizes) >= EVAL_PROCESSES:
+        raise AssertionError("production eval: no env paused, batch sizes "
+                             f"{sorted(set(engine.batch_sizes))}")
+    per_step = {
+        "env_step": sum(envs.step_ms) / loop_steps,
+        "env_reset": sum(envs.reset_ms) / loop_steps,
+        "batch_obs": sum(engine.host_ms["batch_obs"]) / loop_steps,
+        "act_device": sum(dev["act"]) / loop_steps,
+        "update_map_device": sum(dev["update_map"]) / loop_steps,
+        "act_host": sum(engine.host_ms["act"]) / loop_steps,
+        "update_map_host": sum(engine.host_ms["update_map"]) / loop_steps}
+    loop_ms = wall * 1e3 / loop_steps
+    return dict(phase="eval", mode="bf16+rotate_in_splat", dtype="bfloat16",
+                processes=cfg.NUM_PROCESSES, episodes=n,
+                episodes_per_env=list(range(1, EVAL_PROCESSES + 1)),
+                max_episode_steps=EVAL_CAP, split=cfg.EVAL.SPLIT,
+                worker_threads=worker_threads(cfg.NUM_PROCESSES), **row,
+                wall_s=wall, episodes_per_s=n / wall,
+                env_steps=envs.env_steps,
+                env_steps_per_s=envs.env_steps / wall,
+                loop_steps=loop_steps, acts=acts, update_maps=maps,
+                ms_per_loop_step=loop_ms, ms_per_loop_step_split=per_step,
+                share_of_loop_step={
+                    "env_step": per_step["env_step"] / loop_ms,
+                    "batch_obs": per_step["batch_obs"] / loop_ms,
+                    "engine_host": (per_step["act_host"]
+                                    + per_step["update_map_host"]) / loop_ms},
+                act_device_ms=float(np.median(dev["act"])),
+                update_map_device_ms=float(np.median(dev["update_map"])),
+                # by batch: the env step (the slowest live worker's) and
+                # the engine's spans as envs pause
+                env_step_ms_by_batch=median_by(envs.step_ms,
+                                               engine.batch_sizes),
+                device_ms_by_batch=engine.device_ms_by_batch(),
+                batch_sizes=sorted(set(engine.batch_sizes)),
+                loop_steps_by_batch={b: engine.batch_sizes.count(b)
+                                     for b in sorted(set(engine.batch_sizes))},
+                launches=launches,
+                peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
+
+
+class Lockstep:
+    """Two engines fed the same batches and masks: the card's drives the
+    envs; the CPU's outputs hold it, each within ``EVAL_TOL`` of the CPU
+    value's range: every decision's waypoint and prog, every step's ego
+    map and global map."""
+
+    def __init__(self, gpu, cpu):
+        self.gpu, self.cpu = gpu, cpu
+        self.worst: dict[str, float] = {}
+        self.steps = 0
+        self.decisions = 0
+        self.batch_sizes: set[int] = set()
+
+    @property
+    def prog(self):
+        return self.gpu.prog
+
+    def reset_state(self, num_envs: int) -> None:
+        self.gpu.reset_state(num_envs)
+        self.cpu.reset_state(num_envs)
+
+    def keep(self, keep) -> None:
+        self.gpu.keep(keep)
+        self.cpu.keep(keep)
+
+    def batch_obs(self, observations):
+        return self.gpu.batch_obs(observations), self.cpu.batch_obs(
+            observations)
+
+    def _hold(self, name: str, got: torch.Tensor, want: torch.Tensor):
+        scale = float(want.abs().max())
+        err = float((got.float().cpu() - want.float()).abs().max())
+        self.worst[name] = max(self.worst.get(name, 0.0), err / max(scale,
+                                                                   1e-30))
+        if not err <= EVAL_TOL * scale:
+            raise AssertionError(f"lockstep step {self.steps} {name}: {err} "
+                                 f"vs range {scale}")
+
+    def act(self, batch, masks):
+        og = self.gpu.act(batch[0], masks)
+        oc = self.cpu.act(batch[1], masks)
+        self._hold("waypoint", og.action, oc.action)
+        self._hold("prog", og.prog, oc.prog)
+        self._hold("ego_map", og.ego_map, oc.ego_map)
+        self._hold("global_map", self.gpu.global_map, self.cpu.global_map)
+        self.steps += 1
+        self.decisions += 1
+        self.batch_sizes.add(len(masks))
+        return og
+
+    def update_map(self, batch, masks):
+        eg = self.gpu.update_map(batch[0], masks)
+        ec = self.cpu.update_map(batch[1], masks)
+        self._hold("ego_map", eg, ec)
+        self._hold("global_map", self.gpu.global_map, self.cpu.global_map)
+        self.steps += 1
+        self.batch_sizes.add(len(masks))
+        return eg
+
+
+def eval_lockstep(ksplat, kconv) -> dict:
+    """fp32 (TF32 off) at B=2, one short episode per env: the card
+    engine and a CPU engine with the same weights in lockstep; the splat
+    on every step, no wgmma conv (fp32 keeps the library conv)."""
+    import tempfile
+
+    from ws_mgmap_tpu_torch.tools.synthetic import random_policy
+    from ws_mgmap_tpu_torch.train.rollout import RolloutEngine
+
+    cfg = eval_config(2, 2, PARITY_CAP, bf16=False)
+    policy = random_policy(1, rotate_in_splat=False)
+    lock = Lockstep(RolloutEngine(policy, 2),
+                    RolloutEngine(policy, 2, device="cpu"))
+    with tempfile.TemporaryDirectory() as tmp:
+        reset_launches(ksplat, kconv)
+        agg, envs, wall = run_eval(cfg, lock, tmp)
+        launches = launch_counts(ksplat, kconv)
+        row = check_eval(cfg, agg, tmp, envs, 2, "lockstep eval")
+    if (launches["splat_max"] != lock.steps or launches["conv_wgmma"]
+            or launches["conv_direct"] or lock.decisions == 0):
+        raise AssertionError(f"lockstep eval: launches {launches} over "
+                             f"{lock.steps} steps, {lock.decisions} "
+                             "decisions")
+    return dict(phase="eval_fp32_lockstep", dtype="float32", B=2, episodes=2,
+                batch_sizes=sorted(lock.batch_sizes),
+                max_episode_steps=PARITY_CAP, steps_compared=lock.steps,
+                decisions_compared=lock.decisions, tolerance=EVAL_TOL,
+                max_err_over_range=lock.worst, launches=launches,
+                wall_s=wall, **row)
+
+
+def eval_ddppo(ksplat, kconv) -> dict:
+    """``use_ddppo``: 2 env workers, 2 episodes, each worker's DD-PPO
+    controller on the CPU (random init: no checkpoint in the checkout)
+    turning the waypoints into actions."""
+    import tempfile
+
+    from ws_mgmap_tpu_torch.env.vector_env import worker_threads
+    from ws_mgmap_tpu_torch.tools.synthetic import random_policy
+    from ws_mgmap_tpu_torch.train.rollout import RolloutEngine
+
+    cfg = eval_config(2, 2, DDPPO_CAP, bf16=True, use_ddppo=True)
+    engine = TimedEngine(RolloutEngine(random_policy(0, rotate_in_splat=True),
+                                       2, compute_dtype=torch.bfloat16))
+    with tempfile.TemporaryDirectory() as tmp:
+        reset_launches(ksplat, kconv)
+        agg, envs, wall = run_eval(cfg, engine, tmp)
+        launches = launch_counts(ksplat, kconv)
+        row = check_eval(cfg, agg, tmp, envs, 2, "DD-PPO eval")
+    steps = len(envs.step_ms)
+    if launches["splat_max"] != steps:
+        raise AssertionError(f"DD-PPO eval: launches {launches} over "
+                             f"{steps} steps")
+    return dict(phase="eval_ddppo", dtype="bfloat16", processes=2, episodes=2,
+                batch_sizes=sorted(set(engine.batch_sizes)),
+                max_episode_steps=DDPPO_CAP,
+                worker_threads=worker_threads(2), wall_s=wall,
+                loop_steps=steps,
+                env_step_ms=float(np.median(envs.step_ms)),
+                env_step_ms_range=[min(envs.step_ms), max(envs.step_ms)],
+                launches=launches, **row)
+
+
+def ddppo_parity() -> dict:
+    """``PointNavResNetPolicy.act`` at full size on the card against the
+    CPU, B=4, masks 0 and 1, the same seeded weights: logits, value and
+    hidden state within ``EVAL_TOL`` of their range, the same argmax. A
+    row whose argmax differs is listed with its top-two gap on the CPU;
+    it fails unless that gap is inside the logits' tolerance (a tie)."""
+    from ws_mgmap_tpu_torch.models.ddppo_policy import DdppoController
+
+    b = 4
+    rng = np.random.RandomState(13)
+    inputs = (torch.from_numpy(rng.rand(b, 256, 256, 1).astype(np.float32)),
+              torch.from_numpy(np.stack([rng.rand(b) * 5, rng.randn(b)], 1)
+                               .astype(np.float32)),
+              torch.from_numpy(rng.randint(0, 4, b)),
+              torch.from_numpy(rng.randn(4, b, 512).astype(np.float32)),
+              torch.tensor([[0.0], [1.0], [0.0], [1.0]]))
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        ctrl = DdppoController(seed=5, device=dev)
+        with torch.no_grad():
+            outs[dev] = ctrl.policy.act(*(x.to(dev) for x in inputs))
+        if dev == "cuda":
+            gpu_ctrl = ctrl
+    worst, flips = {}, []
+    for i, name in ((1, "logits"), (2, "value"), (3, "hidden")):
+        want, got = outs["cpu"][i], outs["cuda"][i].cpu()
+        scale = float(want.abs().max())
+        err = float((got - want).abs().max())
+        worst[name] = err / scale
+        if not err <= EVAL_TOL * scale:
+            raise AssertionError(f"DD-PPO act {name}: {err} vs range {scale}")
+    logits = outs["cpu"][1]
+    tol = EVAL_TOL * float(logits.abs().max())
+    for row in range(b):
+        a_gpu, a_cpu = int(outs["cuda"][0][row]), int(outs["cpu"][0][row])
+        if a_gpu != a_cpu:
+            top2 = logits[row].topk(2).values
+            gap = float(top2[0] - top2[1])
+            flips.append(dict(row=row, card=a_gpu, cpu=a_cpu, cpu_gap=gap))
+            if gap > tol:
+                raise AssertionError(f"DD-PPO act row {row}: argmax {a_gpu} "
+                                     f"on the card, {a_cpu} on the CPU, gap "
+                                     f"{gap} > {tol}")
+    with torch.no_grad():
+        card = [x.cuda() for x in inputs]
+        ms, host = cuda_ms(lambda: gpu_ctrl.policy.act(*card), 10)
+    return dict(phase="ddppo_act_parity", B=b, masks=[0, 1, 0, 1],
+                tolerance=EVAL_TOL, max_err_over_range=worst,
+                argmax=[int(a) for a in outs["cuda"][0]],
+                argmax_flips=flips, card_act_ms=ms, card_act_host_ms=host)
+
+
+def env_host_step(steps: int = 30) -> dict:
+    """One FakeSim env of the production run's config in this process (no
+    worker, no card): ms per reset and per step, driven by the oracle
+    waypoint, then by random waypoints after a look-around; every
+    default sensor on."""
+    from ws_mgmap_tpu_torch.env.environments import VLNCEDaggerEnv
+    from ws_mgmap_tpu_torch.train.trainer import load_split
+
+    cfg = eval_config(1, 2, EVAL_CAP, bf16=True)
+    dataset, gt = load_split(cfg, cfg.EVAL.SPLIT)
+    env = VLNCEDaggerEnv(cfg, dataset, gt, auto_reset_done=False)
+    env.reset()  # builds the scene; the timed resets reuse it
+    t0 = time.perf_counter()
+    obs = env.reset()
+    reset_ms = (time.perf_counter() - t0) * 1e3
+    step_ms = []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        obs, _, done, _ = env.step(
+            {"action": np.arctanh(np.clip(obs["waypoint"], -0.99, 0.99)),
+             "prog": -1})
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        if done:
+            obs = env.reset()
+    # after the look-around, random waypoints (as an untrained policy's):
+    # the follower plans to a new cell on most steps
+    rng = np.random.RandomState(0)
+    random_ms = []
+    obs = env.reset()
+    for t in range(24 + steps):
+        action = (rng.randn(2) if t >= 24
+                  else np.arctanh(np.clip(obs["waypoint"], -0.99, 0.99)))
+        t0 = time.perf_counter()
+        obs, _, done, _ = env.step({"action": action, "prog": -1})
+        if t >= 24:
+            random_ms.append((time.perf_counter() - t0) * 1e3)
+        if done:
+            obs = env.reset()
+    return dict(phase="env_host_step", rgb=list(obs["rgb"].shape),
+                depth=list(obs["depth"].shape), sensors=sorted(obs),
+                reset_ms=reset_ms, step_ms=float(np.median(step_ms)),
+                step_ms_range=[min(step_ms), max(step_ms)], steps=steps,
+                random_waypoint_step_ms=float(np.median(random_ms)),
+                random_waypoint_step_ms_range=[min(random_ms),
+                                               max(random_ms)],
+                cpu_count=os.cpu_count(),
+                torch_threads=torch.get_num_threads())
+
+
+def drive_eval(ksplat, kconv) -> list[dict]:
+    """Phase 7, from the repo root (the config's task YAML path is
+    relative to it)."""
+    cwd = os.getcwd()
+    os.chdir(ROOT)
+    try:
+        return [env_host_step(), eval_production(ksplat, kconv),
+                eval_lockstep(ksplat, kconv), eval_ddppo(ksplat, kconv),
+                ddppo_parity()]
+    finally:
+        os.chdir(cwd)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--sweep-tiles", action="store_true",
@@ -1281,7 +1865,7 @@ def main() -> int:
     conv_rows = check_conv(kconv, gen)
     emit(dict(phase="kernels", kernel="conv3x3_bn_relu", cases=conv_rows))
     conv_t = {}
-    for b in PRODUCTION_B:
+    for b in CONV_B:
         for step in STEP_KINDS:
             conv_t[b, step] = conv_per_step(conv_rows, b, step)
             emit(conv_t[b, step])
@@ -1311,8 +1895,24 @@ def main() -> int:
     for row in drive_dp(ksplat, kconv):
         emit(row)
 
-    # the kernels line: launches from the main-path runs of phases 3, 3b
-    # and 5 (the training step launches none); times for one B=6 bf16
+    # phase 7: checkpoint evaluation on FakeSim (env workers, evaluate)
+    eval_rows = drive_eval(ksplat, kconv)
+    for row in eval_rows:
+        emit(row)
+    # each batch and dtype phase 7 ran the kernels at was held in phase 2
+    splat_held = {(r["B"], r["dtype"]) for r in splat_rows}
+    wgmma_held = {r["B"] for r in conv_rows if r["variant"] == "wgmma"}
+    for row in eval_rows:
+        for b in row.get("batch_sizes", ()):
+            if (b, row["dtype"]) not in splat_held or (
+                    row["dtype"] == "bfloat16" and b not in wgmma_held):
+                raise AssertionError(f"{row['phase']}: the kernels ran at "
+                                     f"B={b} {row['dtype']}, which phase 2 "
+                                     "did not check")
+
+    # the kernels line: launches from the main-path runs of phases 3, 3b,
+    # 5 and 7 (the training step launches none; phase 7's evaluations,
+    # each counted from 0); times for one B=6 bf16
     # map-update step (splat once, the 16 fused convs by call site; the
     # act step's 20 are in its conv_per_step line); the direct conv is off
     # the main path and timed at the fp32 site
@@ -1322,7 +1922,8 @@ def main() -> int:
 
     def launched(key):
         return sum(r["launches"][key]
-                   for r in slice_rows + act_rows + [train_row])
+                   for r in slice_rows + act_rows + [train_row] + eval_rows
+                   if "launches" in r)
 
     def bound_by(ops_ms, bytes_ms):
         return "operations" if ops_ms >= bytes_ms else "bytes"

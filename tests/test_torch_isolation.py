@@ -1,6 +1,7 @@
 """The port stands alone: no JAX, flax or ws_mgmap_tpu import anywhere in
-``ws_mgmap_tpu_torch/`` or ``chip_smoke.py``, and its entry points run on
-the card unless the caller asks for the CPU."""
+``ws_mgmap_tpu_torch/`` or ``chip_smoke.py``, nor OpenCV, PyYAML or psutil,
+which the port does without (its own YAML reader and line raster); and
+its entry points run on the card unless the caller asks for the CPU."""
 import ast
 from pathlib import Path
 
@@ -13,7 +14,7 @@ from ws_mgmap_tpu_torch.ops.mapping import MapperParams, init_global_map
 from ws_mgmap_tpu_torch.train.rollout import RolloutEngine
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "flax", "ws_mgmap_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "ws_mgmap_tpu", "cv2", "yaml", "psutil")
 
 
 def _port_files():

@@ -1,11 +1,12 @@
 """Recurrent cells with torch parameter layout, written as plain tensor ops.
 
 Port of ``ws_mgmap_tpu/models/rnn.py``: the instruction biLSTM with
-``pack_padded_sequence`` semantics and the mask-gated GRU of habitat's
-``RNNStateEncoder``. Parameters keep torch's names and layout
-(``weight_ih_l0`` [G*H, I], ``weight_hh_l0`` [G*H, H], ``bias_*_l0``
-[G*H], plus ``_reverse`` variants), gate order GRU (r, z, n) and LSTM
-(i, f, g, o), so a reference checkpoint loads by key.
+``pack_padded_sequence`` semantics, the mask-gated GRU of habitat's
+``RNNStateEncoder``, and the stacked LSTM of the DD-PPO controller.
+Parameters keep torch's names and layout (``weight_ih_l0`` [G*H, I],
+``weight_hh_l0`` [G*H, H], ``bias_*_l0`` [G*H], plus ``_reverse``
+variants), gate order GRU (r, z, n) and LSTM (i, f, g, o), so a
+reference checkpoint loads by key.
 
 The cells are plain tensor ops on the CPU and the card alike, in any
 floating dtype: the rollout engine runs them in bf16, which cuDNN's RNN
@@ -159,3 +160,38 @@ class RNNStateEncoder(nn.Module):
     def seq(self, xs: torch.Tensor, h0: torch.Tensor, masks: torch.Tensor
             ) -> tuple[torch.Tensor, torch.Tensor]:
         return self.rnn.seq(xs, h0, masks)
+
+
+class StackedLSTM(nn.Module):
+    """A multi-layer ``nn.LSTM`` stepped once, with its parameters
+    (``weight_ih_l{k}``, ...): the DD-PPO controller's state encoder."""
+
+    def __init__(self, input_size: int, hidden_size: int, num_layers: int):
+        super().__init__()
+        self.num_layers = num_layers
+        g = 4 * hidden_size
+        for k in range(num_layers):
+            i = input_size if k == 0 else hidden_size
+            self.register_parameter(f"weight_ih_l{k}",
+                                    nn.Parameter(torch.empty(g, i)))
+            self.register_parameter(f"weight_hh_l{k}",
+                                    nn.Parameter(torch.empty(g, hidden_size)))
+            self.register_parameter(f"bias_ih_l{k}",
+                                    nn.Parameter(torch.empty(g)))
+            self.register_parameter(f"bias_hh_l{k}",
+                                    nn.Parameter(torch.empty(g)))
+        _uniform_(hidden_size, *self.parameters())
+
+    def forward(self, x: torch.Tensor, h: torch.Tensor, c: torch.Tensor
+                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """x [B, I], h and c [num_layers, B, H] -> (the last layer's
+        output [B, H], new h, new c)."""
+        hs, cs = [], []
+        for k in range(self.num_layers):
+            x, ck = lstm_cell(x, h[k], c[k], getattr(self, f"weight_ih_l{k}"),
+                              getattr(self, f"weight_hh_l{k}"),
+                              getattr(self, f"bias_ih_l{k}"),
+                              getattr(self, f"bias_hh_l{k}"))
+            hs.append(x)
+            cs.append(ck)
+        return x, torch.stack(hs), torch.stack(cs)

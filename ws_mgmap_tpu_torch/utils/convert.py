@@ -8,7 +8,13 @@ kernel [in, out] -> [out, in]; BN ``scale`` -> ``weight``,
 dot, and RNN weights, are stored in torch layout already; the raw
 [out, in] weights of the policy's two ``Conv1d(k=1)`` key layers get the
 trailing unit dimension of torch's [out, in, 1]). It reads plain nested
-dicts of numpy arrays, so it needs neither JAX nor flax.
+dicts of numpy arrays, so it needs neither JAX nor flax. The same rules
+carry the DD-PPO controller's tree (``models/ddppo_policy.py``): its raw
+``visual_fc.1.*``, ``tgt_embeding.*`` and ``state_encoder.rnn.*``
+parameters, the ``nn.Embed`` table and ``critic.fc`` as a flax ``Dense``.
+
+``load_torch_checkpoint`` reads a reference checkpoint file in any of its
+three framings.
 """
 from __future__ import annotations
 
@@ -91,3 +97,23 @@ def from_jax_variables(tree: Mapping[str, Any],
                 nbt = key[: -len("running_mean")] + "num_batches_tracked"
                 out[nbt] = torch.zeros((), dtype=torch.int64)
     return out
+
+
+def load_torch_checkpoint(path: str) -> dict[str, torch.Tensor]:
+    """A torch .pth/.pt on the CPU as a flat state_dict. The three
+    reference framings:
+      * a raw state_dict,
+      * {"state_dict": ...} (policy ckpts, `common_trainer.py:98-104`),
+      * {"models": {"img_segm_model": ...}} (UNet ckpt,
+        `unet_encoder.py:19-21`), its keys' first two parts dropped.
+    The reference's checkpoints pickle their config beside the weights,
+    so this unpickles in full: load only files you trust."""
+    blob = torch.load(path, map_location="cpu", weights_only=False)
+    if isinstance(blob, dict) and "models" in blob:
+        sd = blob["models"]["img_segm_model"]
+        sd = {".".join(k.split(".")[2:]): v for k, v in sd.items()}
+    elif isinstance(blob, dict) and "state_dict" in blob:
+        sd = blob["state_dict"]
+    else:
+        sd = blob
+    return {k: v.detach().cpu() for k, v in sd.items()}
