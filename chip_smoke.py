@@ -43,7 +43,7 @@ config tree from the port's ``CMA_AUG.yaml`` (its own YAML reader), the
 FakeSim split, forkserver env workers (none may hold a CUDA context) and
 ``evaluate`` over the card's ``RolloutEngine``: the production run (bf16
 + rotate-in-splat, 5 workers holding 1 to 5 of 15 episodes of at most
-120 steps, so that envs pause and the batch falls from 5 to 1; every
+72 steps, so that envs pause and the batch falls from 5 to 1; every
 episode ends, JAX's metric keys finite, both metric JSONs written; wall
 time, episodes/s, env steps/s, a loop step split into the env step,
 batch_obs, act and update_map, peak memory, the splat and wgmma launches);
@@ -51,8 +51,17 @@ an fp32 run at B=2 where a CPU engine with the same weights gets the same
 batches and masks in lockstep (each decision's waypoint and prog, each
 step's ego and global map within 1e-3 of the range); a ``use_ddppo`` run
 with the DD-PPO controller on the CPU in 2 workers; and the controller's
-``act`` on the card against the CPU at B=4. Every batch and dtype that
-phase 7 runs the kernels at must be one that phase 2 held them at.
+``act`` on the card against the CPU at B=4. Phase 8, training,
+evaluation and inference through the port's command line
+(``ws_mgmap_tpu_torch/run.py``, in this process): ``FAKESIM_DEBUG.yaml``
+at full width with bf16 rollouts, two DAgger iterations (beta 1, then
+0.75) of collection into the store and teacher-forcing epochs, eval
+while training, the checkpoint folder's evaluation and inference; the
+store read back, each checkpoint loading strictly, no eval-while-training
+failure, every metric finite, each inference episode recorded once, and
+exactly 1 splat per engine step, 16 wgmma per map-update step and 20 per
+act step, none in the updates. Every batch and dtype that phases 7 and 8
+run the kernels at must be one that phase 2 held them at.
 
 Each phase prints one JSON line; any failure raises, so the exit code is
 non-zero and no result line is printed. TF32 is off for cuDNN convolutions
@@ -1269,7 +1278,9 @@ def _tree_equal(a, b) -> bool:
 # --------------------------------------------------------------------------
 # phase 7: checkpoint evaluation on FakeSim
 # --------------------------------------------------------------------------
-EVAL_CAP = 120    # MAX_EPISODE_STEPS of the production run
+# MAX_EPISODE_STEPS of the production run: the look-around and 16
+# decisions (cut from 120 to leave the script's time to phase 8)
+EVAL_CAP = 72
 PARITY_CAP = 30   # the lockstep run: the look-around and two decisions
 DDPPO_CAP = 40
 EVAL_TOL = 1e-3   # of each output's range on the CPU, as in phase 4
@@ -1816,6 +1827,318 @@ def drive_eval(ksplat, kconv) -> list[dict]:
         os.chdir(cwd)
 
 
+# --------------------------------------------------------------------------
+# phase 8: train -> eval -> inference through the CLI on FakeSim
+# --------------------------------------------------------------------------
+CLI_CONFIG = "ws_mgmap_tpu_torch/config/FAKESIM_DEBUG.yaml"
+# bf16 rollouts; cut to depth: splits of 4 FakeSim episodes, not the
+# YAML's 6 (beta 1 collects each once; eval while training runs 2 rounds
+# of the 2 envs, not 3), episodes of at most 36 steps, not 80 (the
+# look-around and 4 decisions; ep_max_len stays 80)
+CLI_OPTS = ["MODEL.ROLLOUT_BF16", "True",
+            "TASK_CONFIG.DATASET.FAKE_EPISODES", "4",
+            "TASK_CONFIG.ENVIRONMENT.MAX_EPISODE_STEPS", "36"]
+# each checkpoint's evaluation: one round of the 2 envs, not the YAML's 3
+# episodes (two rounds)
+CLI_EVAL_EPISODES = 2
+# inference on a split of 3 episodes: 2 on one env, so it pauses
+CLI_INFERENCE_EPISODES = 3
+
+
+class EngineCalls:
+    """Every ``RolloutEngine.act`` and ``update_map`` call of the process
+    while installed (the engines are the trainer's own): kind, batch and
+    dtype, in order."""
+
+    def __init__(self):
+        self.calls: list[tuple[str, int, str]] = []
+
+    def __enter__(self):
+        from ws_mgmap_tpu_torch.train.rollout import RolloutEngine
+
+        self._real = (RolloutEngine.act, RolloutEngine.update_map)
+        real_act, real_map = self._real
+        calls = self.calls
+
+        def act(engine, batch, masks):
+            calls.append(("act", len(masks), str(engine.dtype).split(".")[-1]))
+            return real_act(engine, batch, masks)
+
+        def update_map(engine, batch, masks):
+            calls.append(("update_map", len(masks),
+                          str(engine.dtype).split(".")[-1]))
+            return real_map(engine, batch, masks)
+
+        RolloutEngine.act, RolloutEngine.update_map = act, update_map
+        return self
+
+    def __exit__(self, *exc):
+        from ws_mgmap_tpu_torch.train.rollout import RolloutEngine
+
+        RolloutEngine.act, RolloutEngine.update_map = self._real
+
+    def since(self, start: int) -> dict:
+        """The calls from index ``start`` on: counts, env steps (the sum of
+        the batches), batches and dtypes."""
+        calls = self.calls[start:]
+        return dict(acts=sum(k == "act" for k, _, _ in calls),
+                    update_maps=sum(k == "update_map" for k, _, _ in calls),
+                    env_steps=sum(b for _, b, _ in calls),
+                    batch_sizes=sorted({b for _, b, _ in calls}),
+                    dtypes=sorted({d for _, _, d in calls}))
+
+
+class TrainerProbe:
+    """Installed around the CLI's runs: each collection with its own
+    ``StepTimers`` (wall, episodes, engine calls), each training update
+    (host ms between synchronisations, batch shape, kernel launches) and
+    every trainer log line."""
+
+    def __init__(self, ksplat, kconv, engine: EngineCalls):
+        self.ksplat, self.kconv, self.engine = ksplat, kconv, engine
+        self.collections: list[dict] = []
+        self.updates: list[dict] = []
+        self.logs: list[str] = []
+
+    def __enter__(self):
+        from ws_mgmap_tpu_torch.train import step
+        from ws_mgmap_tpu_torch.train import trainer
+        from ws_mgmap_tpu_torch.utils.profiling import StepTimers
+
+        self._real = (trainer.collect_dataset, step.make_train_step,
+                      trainer.DaggerTrainer._log)
+        real_collect, real_make, real_log = self._real
+        probe = self
+
+        def collect(config, engine, dataset, gt, store, data_it, *a, **k):
+            timers = StepTimers()
+            start = len(probe.engine.calls)
+            t0 = time.perf_counter()
+            n = real_collect(config, engine, dataset, gt, store, data_it,
+                             *a, timers=timers, **k)
+            wall = time.perf_counter() - t0
+            calls = probe.engine.since(start)
+            summary = timers.summary()
+            probe.collections.append(dict(
+                data_it=data_it, beta=config.DAGGER.P ** data_it,
+                episodes=n, wall_s=wall, episodes_per_s=n / wall,
+                env_steps_per_s=calls["env_steps"] / wall, **calls,
+                timers={k: dict(count=v["count"], total_s=v["total_s"],
+                                mean_ms=v["mean_ms"])
+                        for k, v in summary.items()},
+                share_of_wall={k: v["total_s"] / wall
+                               for k, v in summary.items()}))
+            return n
+
+        def make_train_step(*a, **k):
+            update = real_make(*a, **k)
+
+            def timed(state, batch):
+                torch.cuda.synchronize()
+                before = launch_counts(probe.ksplat, probe.kconv)
+                t0 = time.perf_counter()
+                metrics = update(state, batch)
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3
+                after = launch_counts(probe.ksplat, probe.kconv)
+                probe.updates.append(dict(
+                    ms=ms, N=int(batch["weights"].shape[0]),
+                    T=int(batch["weights"].shape[1]),
+                    launches=sum(after.values()) - sum(before.values())))
+                return metrics
+            return timed
+
+        def log(trainer_self, msg):
+            probe.logs.append(msg)
+            real_log(trainer_self, msg)
+
+        trainer.collect_dataset = collect
+        step.make_train_step = make_train_step
+        trainer.DaggerTrainer._log = log
+        return self
+
+    def __exit__(self, *exc):
+        from ws_mgmap_tpu_torch.train import step
+        from ws_mgmap_tpu_torch.train import trainer
+
+        (trainer.collect_dataset, step.make_train_step,
+         trainer.DaggerTrainer._log) = self._real
+
+
+def cli_run(argv: list[str], ksplat, kconv, engine: EngineCalls
+            ) -> tuple[dict, float, dict]:
+    """``python -m ws_mgmap_tpu_torch.run`` in this process, its launches
+    counted from 0; returns (launches, wall s, engine calls)."""
+    from ws_mgmap_tpu_torch.run import main as cli_main
+
+    start = len(engine.calls)
+    reset_launches(ksplat, kconv)
+    t0 = time.perf_counter()
+    cli_main(argv)
+    wall = time.perf_counter() - t0
+    return launch_counts(ksplat, kconv), wall, engine.since(start)
+
+
+def check_cli_launches(what: str, launches: dict, calls: dict) -> None:
+    """1 splat per engine step, 16 wgmma per update_map and 20 per act (bf16
+    rollouts), no direct conv, nothing else on the card."""
+    want = {"splat_max": calls["acts"] + calls["update_maps"],
+            "conv_wgmma": 20 * calls["acts"] + 16 * calls["update_maps"],
+            "conv_direct": 0}
+    if launches != want or calls["dtypes"] != ["bfloat16"]:
+        raise AssertionError(f"{what}: launches {launches}, expected {want} "
+                             f"over {calls}")
+
+
+def check_metric_file(path: Path, what: str) -> dict:
+    stats = json.loads(path.read_text())
+    if not all(k in stats and math.isfinite(stats[k]) for k in METRIC_KEYS):
+        raise AssertionError(f"{what}: metrics {stats}")
+    return stats
+
+
+def drive_cli(ksplat, kconv) -> list[dict]:
+    """Phase 8: ``FAKESIM_DEBUG.yaml`` at full width with bf16 rollouts
+    through the port's CLI, in this process so that launches are counted:
+    ``--run-type train`` (2 envs in forkserver workers; 2 DAgger
+    iterations, beta 1 then 0.75, each collecting 4 episodes of at most
+    36 steps and training 2 epochs in batches of 2; eval-while-training
+    after each), ``eval`` of the checkpoint folder (4 checkpoints, 2
+    val_seen episodes each) and ``inference`` of the last checkpoint on a
+    test split of 3 episodes; the splits cut to 4 FakeSim episodes. Held: the store's records read back, 4
+    checkpoints loading strictly into a fresh policy, no eval-while-
+    training failure logged, every evaluation's 10 metric keys finite
+    and both JSONs written, each inference episode recorded once, exact
+    launches in each run and none in the updates."""
+    import shutil
+    import tempfile
+
+    from ws_mgmap_tpu_torch.config.default import get_config
+    from ws_mgmap_tpu_torch.data.trajstore import TrajStoreReader
+    from ws_mgmap_tpu_torch.models.policy import BasePolicy, MGMapConfig
+    from ws_mgmap_tpu_torch.train import checkpoint as ckpt_lib
+    from ws_mgmap_tpu_torch.train.replay import ReplayLoader
+    from ws_mgmap_tpu_torch.train.trainer import load_split
+
+    model_dir = Path(tempfile.mkdtemp(prefix="chip_smoke_cli_"))
+    base = ["-c", CLI_CONFIG, "-e", str(model_dir)]
+    rows = []
+    cwd = os.getcwd()
+    os.chdir(ROOT)
+    try:
+        cfg = get_config(CLI_CONFIG, CLI_OPTS)
+        with EngineCalls() as engine, TrainerProbe(ksplat, kconv,
+                                                   engine) as probe:
+            torch.cuda.reset_peak_memory_stats()
+            launches, wall, calls = cli_run(
+                ["--run-type", "train"] + base + CLI_OPTS, ksplat, kconv,
+                engine)
+            check_cli_launches("cli train", launches, calls)
+            failed = [m for m in probe.logs if "eval-while-training failed" in m]
+            if failed:
+                raise AssertionError(f"cli train: {failed}")
+            if any(u["launches"] for u in probe.updates):
+                raise AssertionError(f"cli train: launches in the updates "
+                                     f"{probe.updates}")
+            run_dir = model_dir / "run_train_base"
+            store = run_dir / "trajectories.lmdb"
+            reader = TrajStoreReader(str(store))
+            stored = len(reader)
+            reader.close()
+            want = cfg.DAGGER.ITERATIONS * cfg.DAGGER.UPDATE_SIZE
+            read_back = sum(int(b["weights"].shape[0]) for b in ReplayLoader(
+                str(store), cfg.DAGGER.BATCH_SIZE, max_len=cfg.ep_max_len))
+            if stored < want or read_back != stored - stored % 2:
+                raise AssertionError(f"cli train: {stored} records (want >= "
+                                     f"{want}), {read_back} read back")
+            ckpt_dir = run_dir / "checkpoint"
+            n_ckpt = cfg.DAGGER.ITERATIONS * cfg.DAGGER.EPOCHS
+            names = sorted(os.listdir(ckpt_dir))
+            if names != sorted(f"ckpt.{i}.pth" for i in range(n_ckpt)):
+                raise AssertionError(f"cli train: checkpoints {names}")
+            for name in names:
+                blob = ckpt_lib.load_checkpoint(str(ckpt_dir / name))
+                BasePolicy(MGMapConfig.from_config(cfg.MODEL)).load_state_dict(
+                    blob["state_dict"], strict=True)
+            evals = [m for m in probe.logs if m.startswith("[eval]")]
+            if len(evals) != cfg.DAGGER.ITERATIONS:
+                raise AssertionError(f"cli train: eval-while-training logs "
+                                     f"{evals}")
+            ums = [u["ms"] for u in probe.updates]
+            rows.append(dict(
+                phase="cli_train", config=CLI_CONFIG, opts=CLI_OPTS,
+                dtype="bfloat16", processes=cfg.NUM_PROCESSES,
+                iterations=cfg.DAGGER.ITERATIONS, epochs=cfg.DAGGER.EPOCHS,
+                wall_s=wall, store_records=stored, records_read_back=read_back,
+                checkpoints=names, checkpoints_load_strict=True,
+                eval_while_training=evals, eval_while_training_failures=0,
+                collections=probe.collections, updates=len(ums),
+                update_shapes=sorted({(u["N"], u["T"])
+                                      for u in probe.updates}),
+                ms_per_update=float(np.median(ums)),
+                ms_per_update_range=[min(ums), max(ums)],
+                update_launches=0, launches=launches, **calls,
+                peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30))
+
+            launches, wall, calls = cli_run(
+                ["--run-type", "eval"] + base + CLI_OPTS + [
+                    "EVAL_CKPT_PATH_DIR", str(ckpt_dir),
+                    "EVAL.POLL_IDLE_TIMEOUT", "1.0",
+                    "EVAL.EPISODE_COUNT", str(CLI_EVAL_EPISODES)],
+                ksplat, kconv, engine)
+            check_cli_launches("cli eval", launches, calls)
+            metric_dir = model_dir / "run_eval_base" / "metric"
+            split = cfg.EVAL.SPLIT
+            stats, ended = {}, {}
+            for i in range(n_ckpt):
+                stats[i] = check_metric_file(
+                    metric_dir / f"stats_ckpt_{i}_{split}.json", "cli eval")
+                each = json.loads((metric_dir / f"each_stat_ckpt_{i}_{split}"
+                                   ".json").read_text())
+                # the loop ends once as many distinct episodes ended
+                ended[i] = len(each)
+                if not CLI_EVAL_EPISODES <= len(each) <= 4:
+                    raise AssertionError(f"cli eval ckpt {i}: {len(each)} "
+                                         "episodes")
+            rows.append(dict(phase="cli_eval", dtype="bfloat16",
+                             checkpoints=n_ckpt,
+                             episode_count=CLI_EVAL_EPISODES,
+                             episodes_ended=ended, split=split,
+                             wall_s=wall, env_steps_per_s=calls[
+                                 "env_steps"] / wall,
+                             metrics=stats, launches=launches, **calls))
+
+            pred = model_dir / "predictions.json"
+            inf_opts = ["INFERENCE.CKPT_PATH", str(ckpt_dir / names[-1]),
+                        "INFERENCE.PREDICTIONS_FILE", str(pred),
+                        "TASK_CONFIG.DATASET.FAKE_EPISODES",
+                        str(CLI_INFERENCE_EPISODES), "EVAL.EPISODE_COUNT",
+                        str(CLI_INFERENCE_EPISODES)]
+            launches, wall, calls = cli_run(
+                ["--run-type", "inference"] + base + CLI_OPTS + inf_opts,
+                ksplat, kconv, engine)
+            check_cli_launches("cli inference", launches, calls)
+            predictions = json.loads(pred.read_text())
+            inf_cfg = get_config(CLI_CONFIG, CLI_OPTS + inf_opts)
+            split_ids = sorted(str(e.episode_id) for e in load_split(
+                inf_cfg, inf_cfg.INFERENCE.SPLIT)[0].episodes)
+            if sorted(predictions) != split_ids or not all(
+                    len(t) >= 24 for t in predictions.values()):
+                raise AssertionError(f"cli inference: {sorted(predictions)} "
+                                     f"for the split's {split_ids}")
+            rows.append(dict(phase="cli_inference", dtype="bfloat16",
+                             split=inf_cfg.INFERENCE.SPLIT,
+                             episodes=len(predictions), wall_s=wall,
+                             env_steps_per_s=calls["env_steps"] / wall,
+                             steps_per_episode=sorted(
+                                 len(t) for t in predictions.values()),
+                             launches=launches, **calls))
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(model_dir, ignore_errors=True)
+    return rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--sweep-tiles", action="store_true",
@@ -1899,10 +2222,17 @@ def main() -> int:
     eval_rows = drive_eval(ksplat, kconv)
     for row in eval_rows:
         emit(row)
-    # each batch and dtype phase 7 ran the kernels at was held in phase 2
+
+    # phase 8: train -> eval -> inference through the CLI on FakeSim
+    cli_rows = drive_cli(ksplat, kconv)
+    for row in cli_rows:
+        emit(row)
+
+    # each batch and dtype phases 7 and 8 ran the kernels at was held in
+    # phase 2
     splat_held = {(r["B"], r["dtype"]) for r in splat_rows}
     wgmma_held = {r["B"] for r in conv_rows if r["variant"] == "wgmma"}
-    for row in eval_rows:
+    for row in eval_rows + cli_rows:
         for b in row.get("batch_sizes", ()):
             if (b, row["dtype"]) not in splat_held or (
                     row["dtype"] == "bfloat16" and b not in wgmma_held):
@@ -1911,8 +2241,8 @@ def main() -> int:
                                      "did not check")
 
     # the kernels line: launches from the main-path runs of phases 3, 3b,
-    # 5 and 7 (the training step launches none; phase 7's evaluations,
-    # each counted from 0); times for one B=6 bf16
+    # 5, 7 and 8 (the training step launches none; phase 7's evaluations
+    # and phase 8's runs, each counted from 0); times for one B=6 bf16
     # map-update step (splat once, the 16 fused convs by call site; the
     # act step's 20 are in its conv_per_step line); the direct conv is off
     # the main path and timed at the fp32 site
@@ -1922,7 +2252,8 @@ def main() -> int:
 
     def launched(key):
         return sum(r["launches"][key]
-                   for r in slice_rows + act_rows + [train_row] + eval_rows
+                   for r in (slice_rows + act_rows + [train_row]
+                             + eval_rows + cli_rows)
                    if "launches" in r)
 
     def bound_by(ops_ms, bytes_ms):

@@ -308,3 +308,33 @@ def test_global_bn_without_a_group():
         for k, v in before.items():
             assert torch.equal(bn.state_dict()[k], v), k
     assert not bn.global_stats
+
+
+def test_pipeline_two_ranks(tmp_path):
+    """``pipeline``: the whole ``DaggerTrainer.train()`` on two gloo ranks
+    (the JAX check's mode): each rank collects its dataset shard into its
+    own store shard, both update together (the same global metrics on
+    each), rank 0 alone writes the checkpoint; no kernel launches on the
+    CPU."""
+    from ws_mgmap_tpu_torch.data.trajstore import TrajStoreReader
+
+    d = tmp_path / "pipeline"
+    d.mkdir()
+    (d / "spec.json").write_text(json.dumps({
+        "device": "cpu", "backend": None, "threads": 1,
+        "timeout_s": LAUNCH_TIMEOUT_S,
+        "opts": ["TASK_CONFIG.ENVIRONMENT.MAX_EPISODE_STEPS", "30",
+                 "ep_max_len", "30"]}))
+    dtc.launch_ranks(2, d, LAUNCH_TIMEOUT_S, mode="pipeline")
+    done = [json.loads((d / f"rank{r}_done.json").read_text())
+            for r in (0, 1)]
+    assert done[0]["metrics"] == done[1]["metrics"]
+    assert np.isfinite(done[0]["metrics"]["loss"])
+    assert all(r["launches"] == {"splat_max": 0, "conv_wgmma": 0,
+                                 "conv_direct": 0} for r in done)
+    assert sorted(p.name for p in (d / "traj").glob("shard_*.idx")) == [
+        "shard_0.idx", "shard_1.idx"]
+    r = TrajStoreReader(str(d / "traj"))
+    assert len(r) >= 2
+    r.close()
+    assert sorted(p.name for p in (d / "ckpt").iterdir()) == ["ckpt.0.pth"]

@@ -20,17 +20,14 @@ The weights are drawn in numpy for the variables' shapes (JAX's
 """
 import json
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from tests.torch_port_common import (DEPTH_HW, INSTR_LEN, RGB_HW, SMALL,
-                                     jax_config, port_policy)
+from tests.torch_port_common import (DEPTH_HW, RGB_HW, jax_config,
+                                     port_policy, random_variables)
 from ws_mgmap_tpu.config.default import get_config as jget_config
 from ws_mgmap_tpu.env import dataset as jdataset
 from ws_mgmap_tpu.models.policy import BasePolicy as JPolicy
-from ws_mgmap_tpu.ops import mapping as jmap
 from ws_mgmap_tpu.train.evaluator import evaluate as jevaluate
 from ws_mgmap_tpu.train.rollout import RolloutEngine as JEngine
 from ws_mgmap_tpu_torch.config.default import get_config
@@ -43,45 +40,6 @@ B = 2
 SCENES = ["fake/a", "fake/b", "fake/c"]
 CAP = 30
 PROG_THRESHOLD = -0.040
-
-
-def random_variables(seed: int) -> dict:
-    """Seeded variables of the small ``BasePolicy``, drawn in numpy:
-    weights U(-1/sqrt(fan_in), 1/sqrt(fan_in)), biases U(-0.1, 0.1), norm
-    scales in [0.75, 1.25), BN statistics as ``perturb_norms`` draws them,
-    embeddings N(0, 0.3^2)."""
-    policy = JPolicy(jax_config())
-    obs = {"instruction": jnp.ones((1, INSTR_LEN), jnp.int32),
-           "rgb": jnp.zeros((1, RGB_HW, RGB_HW, 3)),
-           "depth": jnp.zeros((1, DEPTH_HW, DEPTH_HW, 1)),
-           "gps": jnp.zeros((1, 2)), "compass": jnp.zeros((1, 1))}
-    shapes = jax.eval_shape(lambda k: policy.init(
-        k, obs, jnp.zeros((2, 1, SMALL["hidden_size"])), jnp.ones((1, 1)),
-        jmap.init_global_map(1, policy.cfg.mapper), method=JPolicy.act),
-        jax.random.PRNGKey(0))
-    rng = np.random.RandomState(seed)
-
-    def draw(coll, leaf, shape):
-        if coll == "batch_stats":
-            return (rng.randn(*shape) * 0.1 if leaf == "mean"
-                    else rng.rand(*shape) + 0.5)
-        if leaf == "scale":
-            return rng.rand(*shape) * 0.5 + 0.75
-        if leaf == "bias" or "bias" in leaf.split(".")[-1]:
-            return rng.uniform(-0.1, 0.1, shape)
-        if leaf == "embedding":
-            return rng.randn(*shape) * 0.3
-        # flax kernels are [..., in, out]; raw torch weights [out, in, ...]
-        fan_in = (int(np.prod(shape[:-1])) if leaf in ("kernel", "kernel_t")
-                  else int(np.prod(shape[1:])))
-        b = 1.0 / np.sqrt(fan_in)
-        return rng.uniform(-b, b, shape)
-
-    def walk(coll, tree):
-        return {k: walk(coll, v) if isinstance(v, dict)
-                else draw(coll, k, v.shape).astype(np.float32)
-                for k, v in tree.items()}
-    return {coll: walk(coll, tree) for coll, tree in shapes.items()}
 
 
 def _config(get):
@@ -126,7 +84,7 @@ def _record(engine, encoder_owner, encoder_name: str, act_of) -> dict:
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    variables = random_variables(3)
+    variables = random_variables(jax_config(), 3)
     jeng = JEngine(JPolicy(jax_config()), variables, B)
     teng = RolloutEngine(port_policy(variables), B, device="cpu")
     out = {}

@@ -1,7 +1,9 @@
 """Shared pieces of the port's tests: a small policy configuration in
 both packages, JAX weights from ``init`` with non-trivial norm statistics,
 their carry-over into the port, seeded raw observations, and seeded
-replay episodes for the training step.
+replay episodes for the training step; seeded JAX variables of any
+policy configuration without a compile, and the small end-to-end
+configuration in both packages.
 
 Small widths: UNet width 0.125 over 64^2 RGB, 128^2 depth (a 2x2 depth
 trunk), a 20^2 ego map of 8 channels, hidden 64, vocab 50.
@@ -120,3 +122,62 @@ def train_episodes(rng, lengths) -> list[dict]:
 def jax_batch(batch: dict) -> dict:
     """A collated numpy batch as JAX arrays (the trainer's device put)."""
     return jax.tree.map(jnp.asarray, batch)
+
+
+def random_variables(jcfg: JConfig, seed: int, rgb_hw: int = RGB_HW,
+                     depth_hw: int = DEPTH_HW) -> dict:
+    """Seeded variables of the JAX ``BasePolicy`` of ``jcfg``, drawn in
+    numpy for the shapes of its ``init`` (``eval_shape``: no compile):
+    weights U(-1/sqrt(fan_in), 1/sqrt(fan_in)), biases U(-0.1, 0.1), norm
+    scales in [0.75, 1.25), BN statistics as ``perturb_norms`` draws them,
+    embeddings N(0, 0.3^2)."""
+    policy = JPolicy(jcfg)
+    obs = {"instruction": jnp.ones((1, INSTR_LEN), jnp.int32),
+           "rgb": jnp.zeros((1, rgb_hw, rgb_hw, 3)),
+           "depth": jnp.zeros((1, depth_hw, depth_hw, 1)),
+           "gps": jnp.zeros((1, 2)), "compass": jnp.zeros((1, 1))}
+    shapes = jax.eval_shape(lambda k: policy.init(
+        k, obs, jnp.zeros((2, 1, jcfg.hidden_size)), jnp.ones((1, 1)),
+        jmap.init_global_map(1, jcfg.mapper), method=JPolicy.act),
+        jax.random.PRNGKey(0))
+    rng = np.random.RandomState(seed)
+
+    def draw(coll, leaf, shape):
+        if coll == "batch_stats":
+            return (rng.randn(*shape) * 0.1 if leaf == "mean"
+                    else rng.rand(*shape) + 0.5)
+        if leaf == "scale":
+            return rng.rand(*shape) * 0.5 + 0.75
+        if leaf == "bias" or "bias" in leaf.split(".")[-1]:
+            return rng.uniform(-0.1, 0.1, shape)
+        if leaf == "embedding":
+            return rng.randn(*shape) * 0.3
+        # flax kernels are [..., in, out]; raw torch weights [out, in, ...]
+        fan_in = (int(np.prod(shape[:-1])) if leaf in ("kernel", "kernel_t")
+                  else int(np.prod(shape[1:])))
+        b = 1.0 / np.sqrt(fan_in)
+        return rng.uniform(-b, b, shape)
+
+    def walk(coll, tree):
+        return {k: walk(coll, v) if isinstance(v, dict)
+                else draw(coll, k, v.shape).astype(np.float32)
+                for k, v in tree.items()}
+    return {coll: walk(coll, tree) for coll, tree in shapes.items()}
+
+
+def tiny_configs(tmp_dir: str, opts=()) -> tuple:
+    """(the port's config, the JAX package's) from the port's
+    ``synthetic.TINY_OPTS`` and then ``opts``, each with its store,
+    checkpoints and TensorBoard in its own directory under ``tmp_dir``."""
+    import os
+
+    from ws_mgmap_tpu.config.default import get_config as jget_config
+
+    port = synthetic.tiny_config(os.path.join(tmp_dir, "port"), opts)
+    jcfg = jget_config(opts=synthetic.TINY_OPTS + list(opts))
+    jcfg.defrost()
+    jcfg.DAGGER.LMDB_FEATURES_DIR = os.path.join(tmp_dir, "jax", "traj")
+    jcfg.CHECKPOINT_FOLDER = os.path.join(tmp_dir, "jax", "ckpt")
+    jcfg.TENSORBOARD_DIR = os.path.join(tmp_dir, "jax", "tb")
+    jcfg.freeze()
+    return port, jcfg

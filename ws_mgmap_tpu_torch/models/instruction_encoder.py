@@ -4,14 +4,27 @@ Port of ``ws_mgmap_tpu/models/instruction_encoder.py``: embeddings (vocab
 2504 x 50) feed a one-layer biLSTM (50 -> 128 each way); the result is
 per-token features [B, T, 256] and a padding mask, True at pads. Token
 id 0 is the pad, and a row's length is its count of non-zero tokens.
+``load_pretrained_embeddings`` reads the dataset's embedding table.
 """
 from __future__ import annotations
 
+import gzip
+import json
+
+import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
 from ws_mgmap_tpu_torch.models.rnn import TorchBiLSTM
+
+
+def load_pretrained_embeddings(path: str) -> np.ndarray:
+    """The dataset's ``embeddings.json.gz`` (reference `:55-66`) as a
+    float32 [vocab, embedding_size] array, for
+    ``embedding_layer.weight``."""
+    with gzip.open(path, "rt") as f:
+        return np.asarray(json.load(f), dtype=np.float32)
 
 
 class InstructionEncoder(nn.Module):

@@ -3,6 +3,7 @@
 
     python -m ws_mgmap_tpu_torch.tools.dist_train_check single <world> <dir>
     python -m ws_mgmap_tpu_torch.tools.dist_train_check rank <r> <world> <dir>
+    python -m ws_mgmap_tpu_torch.tools.dist_train_check pipeline <r> <dir>
 
 The port's counterpart of ``tools/dist_train_check.py``; it imports no
 JAX, so the CPU tests and ``chip_smoke.py`` launch ranks with it
@@ -30,6 +31,15 @@ the state after the update, the all-reduces the update issued (count and
 bytes), the gradient bucket's bytes and the kernels' launches; a timed run
 adds its ms per update (host clock, median and range of the rounds), peak
 memory and the share of the update spent in all-reduce.
+
+``pipeline`` is rank ``r`` of ``WORLD_SIZE`` running the whole
+``DaggerTrainer.train()`` (the JAX check's mode of the same name): the
+small end-to-end configuration (``tools/synthetic.py::tiny_config``) with
+one env and one episode per rank in a batch, each rank collecting its
+dataset shard into its own store shard, then the data-parallel epochs;
+its spec needs only ``device``, ``backend``, ``threads``, ``timeout_s``
+and ``opts`` (more config options). Each rank writes
+``<dir>/rank<r>_done.json``: its last metrics and launches.
 """
 from __future__ import annotations
 
@@ -260,6 +270,39 @@ def main_rank(rank: int, world: int, directory: Path) -> None:
                       for r in results]), flush=True)
 
 
+PIPELINE_OPTS = ["NUM_PROCESSES", "1", "DAGGER.BATCH_SIZE", "1",
+                 "DAGGER.UPDATE_SIZE", "2",
+                 "TASK_CONFIG.DATASET.FAKE_EPISODES", "8"]
+
+
+def main_pipeline(rank: int, directory: Path) -> None:
+    from ws_mgmap_tpu_torch.tools.synthetic import tiny_config
+    from ws_mgmap_tpu_torch.train.trainer import DaggerTrainer
+
+    spec = load_spec(directory)
+    if spec.get("threads") and spec["device"] == "cpu":
+        torch.set_num_threads(spec["threads"])
+    got_rank, world, device = mesh.init_distributed(
+        spec["device"] if spec["device"] == "cpu" else None,
+        init_method=f"file://{directory / 'rendezvous'}",
+        timeout_s=spec.get("timeout_s", 600.0), backend=spec.get("backend"))
+    if got_rank != rank:
+        raise RuntimeError(f"rank {got_rank} from the environment, {rank} "
+                           "asked")
+    try:
+        cfg = tiny_config(str(directory), PIPELINE_OPTS + spec.get("opts", []))
+        launches = kernel_launches()
+        metrics = DaggerTrainer(cfg, rank=rank, world_size=world,
+                                env_workers=False, device=device).train()
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    out = dict(metrics=metrics, launches={
+        k: v - launches[k] for k, v in kernel_launches().items()})
+    (directory / f"rank{rank}_done.json").write_text(json.dumps(out))
+    print(f"pipeline rank {rank} done: {json.dumps(out)}", flush=True)
+
+
 def main_single(world: int, directory: Path) -> None:
     spec = load_spec(directory)
     if spec.get("threads") and spec["device"] == "cpu":
@@ -270,20 +313,23 @@ def main_single(world: int, directory: Path) -> None:
 
 
 def launch_ranks(world: int, directory: Path, timeout_s: float,
-                 shared_card: bool = False) -> list[str]:
-    """Runs ``rank r world directory`` for r < world in subprocesses (a
-    fresh interpreter each: never a fork of a process that holds JAX or a
-    CUDA context) and waits at most ``timeout_s`` for all of them; on
-    expiry or a failure every rank is killed and this raises with their
-    output. ``shared_card``: every rank on card 0 (``LOCAL_RANK`` 0).
-    Returns each rank's output."""
+                 shared_card: bool = False, mode: str = "rank") -> list[str]:
+    """Runs ``rank r world directory`` (``mode="pipeline"``: ``pipeline r
+    directory``) for r < world in subprocesses (a fresh interpreter each:
+    never a fork of a process that holds JAX or a CUDA context) and waits
+    at most ``timeout_s`` for all of them; on expiry or a failure every
+    rank is killed and this raises with their output. ``shared_card``:
+    every rank on card 0 (``LOCAL_RANK`` 0). Returns each rank's
+    output."""
     procs = []
     for r in range(world):
         env = dict(os.environ, WORLD_SIZE=str(world), RANK=str(r),
                    LOCAL_RANK="0" if shared_card else str(r))
+        args = ([str(r), str(world), str(directory)] if mode == "rank"
+                else [str(r), str(directory)])
         procs.append(subprocess.Popen(
             [sys.executable, "-m", "ws_mgmap_tpu_torch.tools.dist_train_check",
-             "rank", str(r), str(world), str(directory)],
+             mode] + args,
             cwd=ROOT, env=env, stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True))
     deadline = time.monotonic() + timeout_s
@@ -313,5 +359,7 @@ if __name__ == "__main__":
         main_single(int(sys.argv[2]), Path(sys.argv[3]))
     elif mode == "rank":
         main_rank(int(sys.argv[2]), int(sys.argv[3]), Path(sys.argv[4]))
+    elif mode == "pipeline":
+        main_pipeline(int(sys.argv[2]), Path(sys.argv[3]))
     else:
         raise SystemExit(f"unknown mode {mode}")

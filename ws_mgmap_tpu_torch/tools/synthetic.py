@@ -1,6 +1,7 @@
 """Seeded inputs for the card drives (``chip_smoke.py`` and the profile
 tool): a full-width policy with random weights, instructions, "wall
-ahead" observations and replay episodes for the training step."""
+ahead" observations and replay episodes for the training step; and the
+small end-to-end configuration of the CPU tests (:data:`TINY_OPTS`)."""
 from __future__ import annotations
 
 import numpy as np
@@ -133,3 +134,50 @@ def special_splat_inputs(rng: np.random.RandomState, p: int, c: int,
         else:
             feats[0, q] = val
     return feats, ids
+
+
+# The small end-to-end run of the CPU tests, as trailing options of the
+# command line: the JAX tests' ``tiny_config`` (2 envs, 1 DAgger iteration
+# of 1 epoch over 2 episodes at beta 1, 4 FakeSim episodes on 2 scenes of
+# at most 60 steps, 64^2 RGB, a 20^2 ego map, a thin policy), with the
+# port tests' UNet width 0.125 and 128^2 depth (a 2x2 depth trunk).
+TINY_OPTS = [
+    "NUM_PROCESSES", "2",
+    "DAGGER.ITERATIONS", "1", "DAGGER.EPOCHS", "1",
+    "DAGGER.UPDATE_SIZE", "2", "DAGGER.BATCH_SIZE", "2", "DAGGER.P", "1.0",
+    "EVAL.EPISODE_COUNT", "2", "EVAL.SPLIT", "val_seen",
+    "ep_max_len", "60", "TASK_CONFIG.ENVIRONMENT.MAX_EPISODE_STEPS", "60",
+    "TASK_CONFIG.DATASET.FAKE_EPISODES", "4",
+    "TASK_CONFIG.DATASET.FAKE_SCENES", "2",
+    "TASK_CONFIG.SIMULATOR.RGB_SENSOR.HEIGHT", "64",
+    "TASK_CONFIG.SIMULATOR.RGB_SENSOR.WIDTH", "64",
+    "TASK_CONFIG.SIMULATOR.DEPTH_SENSOR.HEIGHT", "128",
+    "TASK_CONFIG.SIMULATOR.DEPTH_SENSOR.WIDTH", "128",
+    "MODEL.DEPTH_ENCODER.spatial_hw", "2",
+    "MODEL.RGB_ENCODER.unet_width", "0.125",
+    "MODEL.RGBMAPPING.map_depth", "16",
+    "MODEL.RGBMAPPING.global_map_size", "48",
+    "MODEL.RGBMAPPING.egocentric_map_size", "20",
+    "MODEL.MAP_ENCODER.ego_map_size", "20",
+    "MODEL.MAP_ENCODER.output_size", "32",
+    "MODEL.RGB_ENCODER.output_size", "32",
+    "MODEL.DEPTH_ENCODER.output_size", "16",
+    "MODEL.STATE_ENCODER.hidden_size", "64",
+    "MODEL.INSTRUCTION_ENCODER.hidden_size", "16",
+]
+
+
+def tiny_config(tmp_dir: str, opts=()):
+    """The port's config with :data:`TINY_OPTS` and then ``opts``, its
+    store, checkpoints and TensorBoard under ``tmp_dir``."""
+    import os
+
+    from ws_mgmap_tpu_torch.config.default import get_config
+
+    cfg = get_config(opts=TINY_OPTS + list(opts))
+    cfg.defrost()
+    cfg.DAGGER.LMDB_FEATURES_DIR = os.path.join(tmp_dir, "traj")
+    cfg.CHECKPOINT_FOLDER = os.path.join(tmp_dir, "ckpt")
+    cfg.TENSORBOARD_DIR = os.path.join(tmp_dir, "tb")
+    cfg.freeze()
+    return cfg

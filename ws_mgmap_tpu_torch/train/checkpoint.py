@@ -49,7 +49,15 @@ def restore(policy: BasePolicy, path: str, strict: bool = False
     keys are reported and tolerated, as the reference's strict=False loads
     are, unless ``strict``."""
     blob = load_checkpoint(path)
-    sd = dict(blob["state_dict"])
+    load_policy_state(policy, blob["state_dict"], strict)
+    return blob
+
+
+def load_policy_state(policy: BasePolicy, state_dict: dict[str, Any],
+                      strict: bool = False) -> None:
+    """A checkpoint's ``state_dict`` (the port's, the JAX package's or the
+    reference's) into ``policy``, as :func:`restore` loads it."""
+    sd = dict(state_dict)
     own = policy.state_dict()
     for k, v in list(sd.items()):
         if k.endswith(CONV1D_WEIGHTS) and k in own and v.dim() == 2:
@@ -62,7 +70,6 @@ def restore(policy: BasePolicy, path: str, strict: bool = False
         print(f"[checkpoint] missing keys: {missing[:8]}"
               f"{'...' if len(missing) > 8 else ''}; unexpected: "
               f"{unexpected[:8]}{'...' if len(unexpected) > 8 else ''}")
-    return blob
 
 
 def save_native(path: str, state: TrainState) -> None:

@@ -14,7 +14,9 @@ carry the DD-PPO controller's tree (``models/ddppo_policy.py``): its raw
 parameters, the ``nn.Embed`` table and ``critic.fc`` as a flax ``Dense``.
 
 ``load_torch_checkpoint`` reads a reference checkpoint file in any of its
-three framings.
+three framings; ``load_matching``, ``import_imagenet_resnet18`` and
+``ddppo_depth_state`` put pretrained torch weights into the policy by the
+JAX package's key rules.
 """
 from __future__ import annotations
 
@@ -117,3 +119,75 @@ def load_torch_checkpoint(path: str) -> dict[str, torch.Tensor]:
     else:
         sd = blob
     return {k: v.detach().cpu() for k, v in sd.items()}
+
+
+def load_matching(module: torch.nn.Module,
+                  state_dict: Mapping[str, Any]) -> list[str]:
+    """Loads the entries of ``state_dict`` whose keys ``module`` has (the
+    JAX package's ``import_torch_state``: the rest of the module keeps its
+    values); raises ValueError where a shape differs. Returns the keys it
+    did not use, ``num_batches_tracked`` left out, as JAX counts them."""
+    own = module.state_dict()
+    hit = {}
+    for k, v in state_dict.items():
+        if k not in own:
+            continue
+        v = torch.as_tensor(np.asarray(v) if not torch.is_tensor(v) else v)
+        if tuple(v.shape) != tuple(own[k].shape):
+            raise ValueError(f"cannot map torch {tuple(v.shape)} to "
+                             f"{tuple(own[k].shape)} for {k!r}")
+        hit[k] = v.to(own[k].dtype)
+    module.load_state_dict(hit, strict=False)
+    return [k for k in state_dict
+            if k not in hit and "num_batches_tracked" not in k]
+
+
+def import_imagenet_resnet18(policy: torch.nn.Module,
+                             sd: Mapping[str, Any]) -> int:
+    """Seed the UNet and MapDecoder backbones of ``policy`` from a
+    torchvision resnet18 ImageNet state_dict (from-scratch stage-1 init,
+    reference `unet_encoder.py:34` / `map_encoder.py:75`
+    `pretrained=True`), in place.
+
+    Key remapping (torchvision -> the policy's module paths):
+      conv1/bn1      -> layer0.0 / layer0.1
+      layer1.*       -> layer1.1.*   (maxpool+layer1 live under one module)
+      layer2..layer4 -> unchanged    (UNet only; MapDecoder has no 2..4)
+    The MapDecoder's conv1 is the reference's (256-channel input,
+    `map_encoder.py:76`), so only bn1 + layer1 transfer there.
+    Returns the number of tensors loaded, counted as the JAX package
+    counts them."""
+    def remap(key: str) -> str | None:
+        if key.startswith("conv1."):
+            return "layer0.0." + key[len("conv1."):]
+        if key.startswith("bn1."):
+            return "layer0.1." + key[len("bn1."):]
+        if key.startswith("layer1."):
+            return "layer1.1." + key[len("layer1."):]
+        if key.startswith(("layer2.", "layer3.", "layer4.")):
+            return key
+        return None  # fc.*: unused
+
+    unet_sd, dec_sd = {}, {}
+    for k, v in sd.items():
+        m = remap(k)
+        if m is None:
+            continue
+        unet_sd[f"net.rgb_encoder.base_model.{m}"] = v
+        if m.startswith(("layer0.1.", "layer1.1.")):
+            dec_sd[f"net.map_decoder.{m}"] = v
+    unused_u = load_matching(policy, unet_sd)
+    unused_d = load_matching(policy, dec_sd)
+    return (len(unet_sd) - len(unused_u)) + (len(dec_sd) - len(unused_d))
+
+
+def ddppo_depth_state(raw: Mapping[str, Any]) -> dict[str, Any]:
+    """The depth encoder's entries of a DD-PPO checkpoint's state_dict
+    (``actor_critic.net.visual_encoder.*``, `resnet_encoders.py:37-50`)
+    under the policy's keys (``net.depth_encoder.visual_encoder.*``)."""
+    out = {}
+    for k, v in raw.items():
+        parts = k.split(".")[2:]
+        if parts and parts[0] == "visual_encoder":
+            out["net.depth_encoder." + ".".join(parts)] = v
+    return out
