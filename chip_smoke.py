@@ -60,8 +60,19 @@ while training, the checkpoint folder's evaluation and inference; the
 store read back, each checkpoint loading strictly, no eval-while-training
 failure, every metric finite, each inference episode recorded once, and
 exactly 1 splat per engine step, 16 wgmma per map-update step and 20 per
-act step, none in the updates. Every batch and dtype that phases 7 and 8
-run the kernels at must be one that phase 2 held them at.
+act step, none in the updates. Phase 9, the last modules: an evaluation
+with ``VIDEO_OPTION ["disk"]`` (3 env workers holding 1, 2 and 3 of 6
+episodes of at most 36 steps, bf16, ``VIDEO_NUM`` 4, the semantic sensors
+a video eval adds: 4 PNG directories of a frame a step in the JAX
+compositor's shape, each PNG decoding to the frame written, the panels
+changing, exact launches; compositor and writer timed, zlib 1 against 6)
+paired with the same evaluation without videos; one bf16 engine against
+the same engine split over every card (two replicas on ``cuda:0`` where
+there is one card) through two map-update steps, an act and ``keep`` to
+5 and to 4 envs, within ``SPLIT_TOL``, launching once a chunk, both
+timed; and ``SIMULATOR.TYPE "Sim-v0"`` raising ``ImportError`` without
+habitat-sim. Every batch and dtype that phases 7-9 run the kernels at
+must be one that phase 2 held them at.
 
 Each phase prints one JSON line; any failure raises, so the exit code is
 non-zero and no result line is printed. TF32 is off for cuDNN convolutions
@@ -1490,20 +1501,19 @@ def check_eval(cfg, agg: dict, metric_dir: str, envs: TimedEnvs,
                 workers=len(envs.worker_pids), workers_holding_card=0)
 
 
-def uneven_split(cfg):
-    """The production split: ``EVAL_PROCESSES`` FakeSim scenes, one to
-    each env worker, the i-th (in scene order) cut to its first i + 1
-    episodes. An env pauses when its episodes are done, so the batch
-    falls from 5 to 1 as the run goes on (rounds of 5, 4, 3, 2 and 1 envs
-    where every episode runs to the cap)."""
+def uneven_split(cfg, n: int = EVAL_PROCESSES):
+    """The production split: ``n`` FakeSim scenes, one to each env
+    worker, the i-th (in scene order) cut to its first i + 1 episodes. An
+    env pauses when its episodes are done, so the batch falls from n to 1
+    as the run goes on (rounds of n, n - 1, ..., 1 envs where every
+    episode runs to the cap)."""
     from ws_mgmap_tpu_torch.env.dataset import VLNCEDataset
     from ws_mgmap_tpu_torch.train.trainer import load_split
 
     dataset, gt = load_split(cfg, cfg.EVAL.SPLIT)
     scenes = dataset.scenes()
-    if len(scenes) != EVAL_PROCESSES:
-        raise AssertionError(f"{len(scenes)} scenes for {EVAL_PROCESSES} "
-                             "envs")
+    if len(scenes) != n:
+        raise AssertionError(f"{len(scenes)} scenes for {n} envs")
     episodes = []
     for i, scene in enumerate(scenes):
         own = [e for e in dataset.episodes if e.scene_id == scene]
@@ -2139,6 +2149,399 @@ def drive_cli(ksplat, kconv) -> list[dict]:
     return rows
 
 
+# --------------------------------------------------------------------------
+# phase 9: eval videos, one engine over several cards, no habitat fallback
+# --------------------------------------------------------------------------
+VIDEO_PROCESSES = 3   # env workers holding 1, 2 and 3 episodes
+VIDEO_CAP = 36        # the look-around and 4 decisions
+VIDEO_NUM = 4         # of the split's 6 episodes
+LOOK_AROUND = 24      # steps before the first decision (no maps yet)
+TILE = 240
+SPLIT_B = (6, 24)     # the engine split's batches (24 only with 2+ cards)
+# the split vs one engine, of each output's scale on the one engine (the
+# larger of its range and its largest magnitude: prog's 6 values lie close
+# together): the kernels are per image (exact), cuDNN's bf16 convolutions
+# may take other algorithms at the chunks' batch
+SPLIT_TOL = 2 ** -5
+
+
+def decode_png(data: bytes) -> np.ndarray:
+    """The [H, W, 3] uint8 frame of a PNG as ``env/viz.py::encode_png``
+    writes it (8-bit RGB, no interlace, every row unfiltered); each
+    chunk's CRC checked."""
+    import struct
+    import zlib
+
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise AssertionError("not a PNG")
+    pos, idat, ihdr = 8, [], None
+    while pos < len(data):
+        n, kind = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + n]
+        if zlib.crc32(kind + body) != struct.unpack(
+                ">I", data[pos + 8 + n:pos + 12 + n])[0]:
+            raise AssertionError(f"PNG chunk {kind}: bad CRC")
+        if kind == b"IHDR":
+            ihdr = struct.unpack(">IIBBBBB", body)
+        elif kind == b"IDAT":
+            idat.append(body)
+        pos += 12 + n
+    w, h, depth, colour, _, _, interlace = ihdr
+    if (depth, colour, interlace) != (8, 2, 0):
+        raise AssertionError(f"PNG header {ihdr}")
+    rows = np.frombuffer(zlib.decompress(b"".join(idat)),
+                         np.uint8).reshape(h, 1 + 3 * w)
+    if rows[:, 0].any():
+        raise AssertionError("PNG rows with a filter")
+    return rows[:, 1:].reshape(h, w, 3)
+
+
+class VideoProbe:
+    """``env/viz.py``'s compositor and writer as ``evaluate`` calls them,
+    timed on the host clock: each frame's composition
+    (``observations_to_image`` and ``append_text_to_image``) and each
+    video's writing; every video's frames are kept (episode id ->
+    (directory, frames))."""
+
+    NAMES = ("observations_to_image", "append_text_to_image",
+             "generate_video")
+
+    def __init__(self, viz):
+        self.viz = viz
+        self.real = {n: getattr(viz, n) for n in self.NAMES}
+        self.compose_ms: list[float] = []
+        self.write_ms: list[float] = []
+        self.videos: dict[str, tuple[str, list]] = {}
+
+    def __enter__(self):
+        real, started = self.real, []
+
+        def compose(*a, **k):
+            started.append(time.perf_counter())
+            return real["observations_to_image"](*a, **k)
+
+        def text(img, text):
+            out = real["append_text_to_image"](img, text)
+            self.compose_ms.append((time.perf_counter() - started.pop())
+                                   * 1e3)
+            return out
+
+        def write(video_dir, frames, episode_id, **kw):
+            t0 = time.perf_counter()
+            path = real["generate_video"](video_dir, frames, episode_id, **kw)
+            self.write_ms.append((time.perf_counter() - t0) * 1e3)
+            self.videos[episode_id] = (path, list(frames))
+            return path
+
+        for name, fn in zip(self.NAMES, (compose, text, write)):
+            setattr(self.viz, name, fn)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.real.items():
+            setattr(self.viz, name, fn)
+
+
+def frame_width(t: int) -> int:
+    """The width of JAX's frame at step t of an episode with the GT
+    semantic map sensor on: rgb, first-person semantics, the GT map and
+    the legend until the first decision; then the predicted map in the
+    GT map's place, and the attention."""
+    return (3 if t < LOOK_AROUND else 4) * TILE + 120
+
+
+def check_videos(probe: VideoProbe, video_dir: Path, each: dict) -> dict:
+    """VIDEO_NUM directories, one an ended episode, a frame a step of the
+    JAX compositor's shape; every PNG decodes to the frame written; the
+    semantic panel changes, and so do the map and attention panels after
+    the first decision."""
+    dirs = sorted(p.name for p in video_dir.iterdir())
+    if len(dirs) != VIDEO_NUM or len(probe.videos) != VIDEO_NUM:
+        raise AssertionError(f"videos: {dirs}, {len(probe.videos)} written")
+    png_bytes, frames_total = 0, 0
+    for ep, (path, frames) in probe.videos.items():
+        steps = each[ep]["steps_taken"]
+        name = f"episode={ep}-ckpt=0-spl={each[ep]['spl']:.2f}"
+        pngs = sorted(Path(path).iterdir())
+        if Path(path).name != name or len(frames) != steps or len(
+                pngs) != steps:
+            raise AssertionError(f"video {path}: {len(frames)} frames, "
+                                 f"{len(pngs)} PNGs, {steps} steps")
+        changed = {"semantic": False, "map": False, "attention": False}
+        for t, (frame, png) in enumerate(zip(frames, pngs)):
+            if frame.shape != (TILE + 40, frame_width(t), 3):
+                raise AssertionError(f"{name} frame {t}: {frame.shape}")
+            data = png.read_bytes()
+            png_bytes += len(data)
+            if not np.array_equal(decode_png(data), frame):
+                raise AssertionError(f"{png}: decodes to another frame")
+            panels = {"semantic": frame[:TILE, TILE:2 * TILE]}
+            if t >= LOOK_AROUND:
+                panels.update(map=frame[:TILE, 2 * TILE:3 * TILE],
+                              attention=frame[:TILE, 3 * TILE:4 * TILE])
+            for k, v in panels.items():
+                changed[k] |= len(np.unique(v.reshape(-1, 3), axis=0)) > 1
+        if not all(changed.values()):
+            raise AssertionError(f"{name}: constant panels {changed}")
+        frames_total += len(frames)
+    return dict(videos=len(dirs), frames=frames_total,
+                png_bytes_per_frame=png_bytes / frames_total)
+
+
+def png_levels(viz, frames: list) -> dict:
+    """ms and bytes per frame of the PNG writer's zlib at level 1 and 6,
+    on ``frames``."""
+    out = {}
+    for level in (1, 6):
+        t0 = time.perf_counter()
+        sizes = [len(viz.encode_png(f, level)) for f in frames]
+        out[level] = dict(ms_per_frame=(time.perf_counter() - t0) * 1e3
+                          / len(frames),
+                          bytes_per_frame=sum(sizes) / len(frames))
+    out["bytes_ratio_1_to_6"] = (out[1]["bytes_per_frame"]
+                                 / out[6]["bytes_per_frame"])
+    return out
+
+
+def eval_videos(policy, ksplat, kconv) -> list[dict]:
+    """The production eval cut to 3 env workers holding 1, 2 and 3 of 6
+    FakeSim episodes of at most 36 steps, bf16 + rotate-in-splat, with
+    ``VIDEO_OPTION ["disk"]``, ``VIDEO_NUM`` 4 and the sensors a video
+    eval adds (the trainer's ``add_video_sensors``); then the same split
+    without videos, paired: the videos' cost on the wall and per frame."""
+    import tempfile
+
+    from ws_mgmap_tpu_torch.env import viz
+    from ws_mgmap_tpu_torch.models.policy import MGMapConfig
+    from ws_mgmap_tpu_torch.train.rollout import RolloutEngine
+    from ws_mgmap_tpu_torch.train.trainer import add_video_sensors
+
+    cfg = eval_config(VIDEO_PROCESSES, VIDEO_PROCESSES ** 2, VIDEO_CAP,
+                      bf16=True, scenes=VIDEO_PROCESSES)
+    dataset, gt = uneven_split(cfg, VIDEO_PROCESSES)
+    n = len(dataset.episodes)
+    if MGMapConfig.from_config(cfg.MODEL) != policy.cfg:
+        raise AssertionError("the eval config describes another model")
+    engine = RolloutEngine(policy, cfg.NUM_PROCESSES,
+                           compute_dtype=torch.bfloat16)
+    rows = []
+    with tempfile.TemporaryDirectory() as tmp:
+        video_dir = Path(tmp) / "videos"
+        vcfg = cfg.clone()
+        vcfg.defrost()
+        vcfg.VIDEO_OPTION = ["disk"]
+        vcfg.VIDEO_DIR = str(video_dir)
+        vcfg.VIDEO_NUM = VIDEO_NUM
+        add_video_sensors(vcfg)
+        vcfg.freeze()
+        for name, run_cfg in (("video", vcfg), ("no_video", cfg)):
+            timed = TimedEngine(engine)
+            metric_dir = Path(tmp) / name
+            with VideoProbe(viz) as probe:
+                reset_launches(ksplat, kconv)
+                agg, envs, wall = run_eval(run_cfg, timed, str(metric_dir),
+                                           dataset, gt)
+                launches = launch_counts(ksplat, kconv)
+            row = check_eval(run_cfg, agg, str(metric_dir), envs, n,
+                             f"{name} eval")
+            dev = timed.device_ms()
+            acts, maps = len(dev["act"]), len(dev["update_map"])
+            loop_steps = len(envs.step_ms)
+            want = {"splat_max": acts + maps,
+                    "conv_wgmma": 20 * acts + 16 * maps, "conv_direct": 0}
+            if launches != want or loop_steps != acts + maps:
+                raise AssertionError(f"{name} eval: launches {launches}, "
+                                     f"expected {want}")
+            each = json.loads((metric_dir / "each_stat_ckpt_0_"
+                               f"{cfg.EVAL.SPLIT}.json").read_text())
+            row = dict(phase="eval_video" if name == "video"
+                       else "eval_no_video", dtype="bfloat16",
+                       processes=cfg.NUM_PROCESSES, episodes=n,
+                       max_episode_steps=VIDEO_CAP, **row, wall_s=wall,
+                       loop_steps=loop_steps,
+                       ms_per_loop_step=wall * 1e3 / loop_steps,
+                       ms_per_loop_step_split={
+                           "env_step": sum(envs.step_ms) / loop_steps,
+                           "env_reset": sum(envs.reset_ms) / loop_steps,
+                           "batch_obs": sum(timed.host_ms["batch_obs"])
+                           / loop_steps,
+                           "engine_host": (sum(timed.host_ms["act"])
+                                           + sum(timed.host_ms["update_map"]))
+                           / loop_steps,
+                           "compose": sum(probe.compose_ms) / loop_steps,
+                           "write": sum(probe.write_ms) / loop_steps},
+                       env_steps_per_s=envs.env_steps / wall,
+                       batch_sizes=sorted(set(timed.batch_sizes)),
+                       launches=launches)
+            if name == "video":
+                row.update(check_videos(probe, video_dir, each))
+                compose = sum(probe.compose_ms)
+                write = sum(probe.write_ms)
+                row.update(
+                    video_option=["disk"], video_num=VIDEO_NUM,
+                    compose_ms_per_frame=float(np.median(probe.compose_ms)),
+                    composed_frames=len(probe.compose_ms),
+                    write_ms_per_frame=write / row["frames"],
+                    video_share_of_loop_step=(compose + write)
+                    / (wall * 1e3),
+                    png_levels=png_levels(
+                        viz, next(iter(probe.videos.values()))[1]))
+            elif probe.compose_ms or probe.videos:
+                raise AssertionError("the eval without videos composed "
+                                     "frames")
+            rows.append(row)
+    rows[0]["wall_over_no_video"] = rows[0]["wall_s"] / rows[1]["wall_s"]
+    rows[0]["metrics_equal_no_video"] = (rows[0]["metrics"]
+                                         == rows[1]["metrics"])
+    return rows
+
+
+def split_drive(policy, ksplat, kconv) -> list[dict]:
+    """One bf16 engine against the same engine split over every card (on
+    a one-card machine two replicas on ``cuda:0``: the semantics, not a
+    speed-up) on the wall spin at B=6: 2 map-update steps and an act,
+    then ``keep`` to 5 envs (one chunk) and a map-update step, to 4 (the
+    chunks of 4) and an act. The ego map, global map, waypoint and hidden
+    state are held within ``SPLIT_TOL`` of their scale after each step;
+    each step launches its kernels once per chunk. Then both are timed
+    (B=6, and B=24 where there are 2 or more cards)."""
+    from ws_mgmap_tpu_torch.tools.synthetic import (instruction_tokens,
+                                                    wall_obs)
+    from ws_mgmap_tpu_torch.train.rollout import RolloutEngine
+
+    cards = torch.cuda.device_count()
+    devices = ([f"cuda:{i}" for i in range(cards)] if cards >= 2
+               else ["cuda:0", "cuda:0"])
+    per_step = {"act": {"splat_max": 1, "conv_wgmma": 20, "conv_direct": 0},
+                "update_map": {"splat_max": 1, "conv_wgmma": 16,
+                               "conv_direct": 0}}
+    b = SPLIT_B[0]
+    one = RolloutEngine(policy, b, compute_dtype=torch.bfloat16)
+    split = RolloutEngine(policy, b, compute_dtype=torch.bfloat16,
+                          devices=devices)
+    gen = np.random.RandomState(9)
+    tok = instruction_tokens(b, gen)
+    errs: dict[str, float] = {}
+    chunk_sizes, total = set(), {k: 0 for k in per_step["act"]}
+
+    def rel(name, got, want):
+        got, want = got.float().to(want.device), want.float()
+        span = max(float(want.max() - want.min()),
+                   float(want.abs().max())) or 1.0
+        err = float((got - want).abs().max()) / span
+        errs[name] = max(errs.get(name, 0.0), err)
+
+    def step(kind, k, rows):
+        obs = one.batch_obs(wall_obs(len(rows), math.radians(15 * k), gen,
+                                     tokens=tok[rows]))
+        masks = np.zeros((len(rows), 1)) if k == 0 else np.ones(
+            (len(rows), 1))
+        reset_launches(ksplat, kconv)
+        got = getattr(split, kind)(obs, masks)
+        ran = launch_counts(ksplat, kconv)
+        want = getattr(one, kind)(obs, masks)
+        chunks = len(split.chunks)
+        expect = {key: v * chunks for key, v in per_step[kind].items()}
+        if ran != expect:
+            raise AssertionError(f"split {kind} at B={len(rows)} over "
+                                 f"{chunks} chunks: launches {ran}, "
+                                 f"expected {expect}")
+        for key in total:
+            total[key] += ran[key]
+        chunk_sizes.update(b - a for a, b in split.chunks)
+        if kind == "act":
+            for f in ("action", "hidden", "ego_map", "prog"):
+                rel(f, getattr(got, f), getattr(want, f))
+        else:
+            rel("ego_map", got, want)
+        rel("global_map", split.global_map, one.global_map)
+        rel("hidden", split.hidden, one.hidden)
+
+    rows = list(range(b))
+    for k, kind in enumerate(("update_map", "update_map", "act")):
+        step(kind, k, rows)
+    chunks_by_b = {b: len(split.chunks)}
+    for keep, kind in (([0, 1, 2, 3, 5], "update_map"), ([0, 1, 2, 4],
+                                                        "act")):
+        rows = [rows[i] for i in keep]
+        one.keep(keep)
+        split.keep(keep)
+        rel("global_map", split.global_map, one.global_map)
+        rel("hidden", split.hidden, one.hidden)
+        step(kind, 3 + len(chunks_by_b), rows)
+        chunks_by_b[len(rows)] = len(split.chunks)
+    bad = {k: v for k, v in errs.items() if not v <= SPLIT_TOL}
+    if bad:
+        raise AssertionError(f"split vs one engine: {bad} of the scale "
+                             f"(all: {errs})")
+
+    # timed: update_map and act, one engine vs the split, paired
+    timed = {}
+    for tb in SPLIT_B if cards >= 2 else SPLIT_B[:1]:
+        engines = {"one": RolloutEngine(policy, tb,
+                                        compute_dtype=torch.bfloat16),
+                   "split": RolloutEngine(policy, tb,
+                                          compute_dtype=torch.bfloat16,
+                                          devices=devices)}
+        obs = engines["one"].batch_obs(wall_obs(tb, 0.0, gen,
+                                                tokens=instruction_tokens(
+                                                    tb, gen)))
+        ones = np.ones((tb, 1))
+        res = {}
+        for name in ("one", "split", "split", "one"):
+            eng = engines[name]
+            for kind in ("update_map", "act"):
+                getattr(eng, kind)(obs, ones)
+                ms, rng = host_ms(lambda: getattr(eng, kind)(obs, ones), 3,
+                                  4)
+                res.setdefault(f"{name}_{kind}_ms", []).append(ms)
+        timed[tb] = dict(chunks=len(engines["split"].chunks), **res)
+    return [dict(phase="engine_split", dtype="bfloat16", cards=cards,
+                 devices=devices, B=b, chunks_by_batch=chunks_by_b,
+                 batch_sizes=sorted(chunk_sizes), launches=total,
+                 max_rel_err=errs, tol=SPLIT_TOL, timed_ms=timed)]
+
+
+def habitat_gate() -> dict:
+    """A non-FakeSim simulator without habitat-sim: ``construct_envs``
+    raises ``ImportError`` before any env worker starts, and nothing
+    falls back to FakeSim."""
+    from ws_mgmap_tpu_torch.env import habitat_backend
+    from ws_mgmap_tpu_torch.env.vector_env import construct_envs
+    from ws_mgmap_tpu_torch.train.trainer import load_split
+
+    cfg = eval_config(1, 1, VIDEO_CAP, bf16=True)
+    dataset, gt = load_split(cfg, cfg.EVAL.SPLIT)
+    cfg.defrost()
+    cfg.TASK_CONFIG.SIMULATOR.TYPE = "Sim-v0"
+    cfg.freeze()
+    if habitat_backend.HABITAT_AVAILABLE:
+        raise AssertionError("habitat_sim is installed: the gate cannot "
+                             "be checked")
+    try:
+        envs = construct_envs(cfg, dataset, gt, auto_reset_done=False,
+                              workers=True)
+    except ImportError as e:
+        if "habitat_sim" not in str(e):
+            raise AssertionError(f"ImportError without habitat_sim: {e}")
+        return dict(phase="habitat_gate", simulator="Sim-v0",
+                    raised="ImportError", message=str(e))
+    envs.close()
+    raise AssertionError("Sim-v0 without habitat_sim built envs")
+
+
+def drive_phase9(policy, ksplat, kconv) -> list[dict]:
+    """Phase 9, from the repo root (the config's task YAML path is
+    relative to it)."""
+    cwd = os.getcwd()
+    os.chdir(ROOT)
+    try:
+        return (eval_videos(policy, ksplat, kconv)
+                + split_drive(policy, ksplat, kconv) + [habitat_gate()])
+    finally:
+        os.chdir(cwd)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--sweep-tiles", action="store_true",
@@ -2228,11 +2631,16 @@ def main() -> int:
     for row in cli_rows:
         emit(row)
 
-    # each batch and dtype phases 7 and 8 ran the kernels at was held in
+    # phase 9: eval videos, the engine split, the habitat gate
+    video_rows = drive_phase9(policy, ksplat, kconv)
+    for row in video_rows:
+        emit(row)
+
+    # each batch and dtype phases 7-9 ran the kernels at was held in
     # phase 2
     splat_held = {(r["B"], r["dtype"]) for r in splat_rows}
     wgmma_held = {r["B"] for r in conv_rows if r["variant"] == "wgmma"}
-    for row in eval_rows + cli_rows:
+    for row in eval_rows + cli_rows + video_rows:
         for b in row.get("batch_sizes", ()):
             if (b, row["dtype"]) not in splat_held or (
                     row["dtype"] == "bfloat16" and b not in wgmma_held):
@@ -2241,8 +2649,9 @@ def main() -> int:
                                      "did not check")
 
     # the kernels line: launches from the main-path runs of phases 3, 3b,
-    # 5, 7 and 8 (the training step launches none; phase 7's evaluations
-    # and phase 8's runs, each counted from 0); times for one B=6 bf16
+    # 5, 7, 8 and 9 (the training step launches none; phase 7's and 9's
+    # evaluations, phase 8's runs and phase 9's split steps, each counted
+    # from 0); times for one B=6 bf16
     # map-update step (splat once, the 16 fused convs by call site; the
     # act step's 20 are in its conv_per_step line); the direct conv is off
     # the main path and timed at the fp32 site
@@ -2253,7 +2662,7 @@ def main() -> int:
     def launched(key):
         return sum(r["launches"][key]
                    for r in (slice_rows + act_rows + [train_row]
-                             + eval_rows + cli_rows)
+                             + eval_rows + cli_rows + video_rows)
                    if "launches" in r)
 
     def bound_by(ops_ms, bytes_ms):

@@ -10,8 +10,9 @@ The port's copy of ``ws_mgmap_tpu/env/vector_env.py``. Workers start from
 a forkserver, never by ``fork``: the parent may hold a CUDA context, and
 nothing a worker imports touches ``torch.cuda``. Each worker's env sees
 ``ENV_WORKER`` set to its share of the host's cores, the torch thread
-count its CPU DD-PPO controller takes. Only FakeSim is ported; another
-``SIMULATOR.TYPE`` raises.
+count its CPU DD-PPO controller takes. A ``SIMULATOR.TYPE`` other than
+FakeSim builds ``env/habitat_backend.py``'s adapter in each env; where
+habitat-sim is not installed, ``construct_envs`` raises ``ImportError``.
 """
 from __future__ import annotations
 
@@ -228,7 +229,15 @@ def _default_sim_factory(config):
     if sim.TYPE == "FakeSim":
         from ws_mgmap_tpu_torch.env.sim import FakeSim
         return functools.partial(FakeSim, rgb_hw=rgb_hw, depth_hw=depth_hw)
-    raise NotImplementedError(
-        f"SIMULATOR.TYPE {sim.TYPE!r}: the port has only FakeSim; the "
-        "habitat backend (env/habitat_backend.py) is a later item of "
-        "ROADMAP.md's queue 1")
+    from ws_mgmap_tpu_torch.env import habitat_backend
+    if not habitat_backend.HABITAT_AVAILABLE:
+        # here, before any worker starts: an env builds its simulator only
+        # at its first reset, in its worker
+        raise ImportError(f"SIMULATOR.TYPE {sim.TYPE!r} needs habitat_sim, "
+                          "which is not installed; use FakeSim or install "
+                          "habitat-sim v0.1.5")
+    # the full SIMULATOR node travels to the adapter so sensor specs (HFOV,
+    # positions, depth normalization) and agent radius/height are config-
+    # faithful (`vlnce_task.yaml:3-21`)
+    return functools.partial(habitat_backend.HabitatSimBackend, sim_cfg=sim,
+                             rgb_hw=rgb_hw, depth_hw=depth_hw)

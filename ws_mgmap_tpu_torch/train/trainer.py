@@ -80,6 +80,20 @@ def load_split(config, split: str):
     return ds, fake_gt_locations(ds)
 
 
+def add_video_sensors(config) -> None:
+    """What a video eval adds to its (defrosted) config: the semantic
+    overlay sensor, and the simulator's semantic frames it reads
+    (`common_trainer.py:272-277`)."""
+    sensors = list(config.TASK_CONFIG.TASK.SENSORS)
+    if "SEMANTIC_FILTER_SENSOR" not in sensors:
+        sensors.append("SEMANTIC_FILTER_SENSOR")
+    config.TASK_CONFIG.TASK.SENSORS = sensors
+    agent_sensors = list(config.TASK_CONFIG.SIMULATOR.AGENT_0.SENSORS)
+    if "SEMANTIC_SENSOR" not in agent_sensors:
+        agent_sensors.append("SEMANTIC_SENSOR")
+    config.TASK_CONFIG.SIMULATOR.AGENT_0.SENSORS = agent_sensors
+
+
 class DaggerTrainer:
     """`DaggerTrainer` (`dagger_trainer.py:241-678`) for rank ``rank`` of
     ``world_size``. ``device``: this rank's device; by default card
@@ -168,10 +182,23 @@ class DaggerTrainer:
 
     def _engine(self, policy: BasePolicy, num_envs: int) -> RolloutEngine:
         """A rollout engine with its own copy of ``policy``'s weights, in
-        the rollout dtype."""
+        the rollout dtype. The one rank of a run splits its envs over
+        every local card, its own first, as JAX's engine shards them over
+        every local chip (``trainer.py:93``); with more ranks each keeps
+        to its own card, as JAX drops the mesh (``rollout.py:55-58``)."""
+        cards = (torch.cuda.device_count()
+                 if self.device.type == "cuda" and self.world_size == 1
+                 else 1)
+        if cards < 2:
+            return RolloutEngine(policy, num_envs,
+                                 compute_dtype=self.rollout_dtype,
+                                 device=self.device)
+        own = self.device.index or 0
+        devices = [torch.device("cuda", i)
+                   for i in [own] + [i for i in range(cards) if i != own]]
         return RolloutEngine(policy, num_envs,
                              compute_dtype=self.rollout_dtype,
-                             device=self.device)
+                             devices=devices)
 
     def _log(self, msg: str):
         if self.rank == 0:
@@ -506,8 +533,8 @@ class DaggerTrainer:
         eval_cfg.TASK_CONFIG.DATASET.SPLIT = split
         eval_cfg.TASK_CONFIG.ENVIRONMENT.ITERATOR_OPTIONS.SHUFFLE = False
         eval_cfg.NUM_PROCESSES = min(cfg.NUM_PROCESSES, 11)
-        # (the JAX package adds the semantic overlay sensors for video
-        # evals here; the port's evaluate raises on VIDEO_OPTION)
+        if eval_cfg.VIDEO_OPTION:
+            add_video_sensors(eval_cfg)
         eval_cfg.freeze()
 
         # the checkpoint's config may describe a different model size; build
@@ -527,4 +554,5 @@ class DaggerTrainer:
             eval_cfg, engine, dataset, gt,
             episode_count=cfg.EVAL.EPISODE_COUNT,
             workers=self.env_workers, log_fn=self._log,
-            metric_dir=metric_dir, checkpoint_index=ckpt_index, split=split)
+            metric_dir=metric_dir, checkpoint_index=ckpt_index, split=split,
+            tb_writer=self._tb())
