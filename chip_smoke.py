@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch/H100 port on one CUDA card.
 
     python3 chip_smoke.py [--sweep-tiles] [--splat-ablation]
+                          [--direct-vs SRC]
 
 Builds the port's CUDA kernels from ``ws_mgmap_tpu_torch/ops/kernels/csrc``
 (into ``build/ws_mgmap_tpu_torch/``), holds each kernel against its plain
@@ -9,11 +10,13 @@ PyTorch twin at the main path's shapes and times both (the splat on
 synthetic ids, on the ids of a B=6 and a B=24 step
 of the wall spin, and untimed on edge values: NaN, infinities, signed
 zeros; the fused conv's wgmma kernel at every call site at B=6 and B=24,
-the UNet's 16 and the map decoder's 4, and its direct kernel at an fp32
-and a ragged-channel shape; with ``--sweep-tiles`` also the wgmma kernel
-with every tile; with ``--splat-ablation`` also variants of the splat
-with a part taken out), then drives the whole policy at full width with
-random weights from a seed: the map-update step
+the UNet's 16 and the map decoder's 4, and its direct kernel at every
+call site in fp32 at B=6 and B=24 (timed) and B=2, and at a
+ragged-channel shape; with ``--sweep-tiles`` also both kernels with every
+tile; with ``--splat-ablation`` also variants of the splat with a part
+taken out; with ``--direct-vs SRC`` also an earlier ``conv3x3.cu``
+against the direct kernel), then drives the whole policy at full width
+with random weights from a seed: the map-update step
 (``RolloutEngine.update_map``: the ResNet18-UNet over 224^2 RGB, 256^2
 depth, 100^2 ego and 240^2 global maps) and the decision path
 (``RolloutEngine.act`` every third step: the UNet and the mapping step,
@@ -21,7 +24,10 @@ the depth ResNet50, the map encoder / decoder / classifier, the
 instruction biLSTM once per episode, attention, the two GRUs and the
 heads). Production mode (bf16 + rotate-in-splat) runs at B=6 and B=24 on
 a "wall 3 m ahead" drive; the fp32 parity mode runs act and update_map at
-B=2 against the same port on the CPU. Last, the teacher-forcing training
+B=2 against the same port on the CPU, with the library convs (fused mode
+"auto") and then with the fused sites through the direct kernel ("on":
+16 launches an update_map, 20 an act); the fp32 steps at B=6 and B=24
+are timed under "auto" and "on" in turns. Last, the teacher-forcing training
 step (``train/step.py``: ``forward_seq`` over 5 episodes x 64 steps, the
 losses, backward, Adam with frozen trunks, train-mode BatchNorm) runs in
 fp32 at full width, launching none of the kernels, timed with remat off
@@ -83,6 +89,7 @@ file, the script fails.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import ctypes
 import json
@@ -397,6 +404,7 @@ EVAL_PROCESSES = 5  # the production eval's env workers, its first batch
 # phase 7's batches: its envs pause one by one (checked, the last timed)
 EVAL_B = tuple(range(1, EVAL_PROCESSES + 1))
 CONV_B = PRODUCTION_B + (EVAL_PROCESSES,)  # the timed batches
+FP32_PARITY_B = 2  # phase 4's batch (the direct kernel under fused "on")
 
 
 def conv_launches(kconv) -> dict:
@@ -444,6 +452,16 @@ def cudnn_call(x, x2, w, scale, bias, residual):
     return library
 
 
+def conv_bound(h, c1, c2, co, res, dtype, b) -> tuple[float, dict]:
+    """(FLOPs, :func:`bound_ms`) of one call: x, x2, w and residual read
+    once, the output written once, scale and bias in fp32."""
+    esz = torch.empty((), dtype=dtype).element_size()
+    flops = 2.0 * b * h * h * 9 * (c1 + c2) * co
+    nbytes = esz * (b * h * h * (c1 + c2 + co * (2 if res else 1))
+                    + 9 * (c1 + c2) * co) + 8 * co
+    return flops, bound_ms(nbytes, flops, dtype)
+
+
 def conv_case(kconv, name, h, c1, c2, co, res, dtype, b, gen,
               timed: bool = True):
     """One call site: the kernel that the dispatch picks vs the twin (and
@@ -475,6 +493,12 @@ def conv_case(kconv, name, h, c1, c2, co, res, dtype, b, gen,
         grid = kconv.wgmma_grid(b, h, h, c1 + c2, co)
         row.update(tile_th_bn=list(kconv.wgmma_tile(b, h, h, c1 + c2, co)),
                    grid=list(grid), blocks=math.prod(grid))
+    else:
+        tile = kconv.direct_tile(b, h, h, c1 + c2, co)
+        grid = kconv.direct_grid(b, h, h, co, tile)
+        row.update(tile_th_tw_bn_kc_split_stages=list(tile), grid=list(grid),
+                   blocks=math.prod(grid),
+                   smem_bytes=kconv.direct_smem_bytes(tile))
     if not timed:
         return row
 
@@ -495,77 +519,183 @@ def conv_case(kconv, name, h, c1, c2, co, res, dtype, b, gen,
             tile_rule=("fewest L2 bytes"
                        if row["blocks"] >= kconv.MIN_BLOCKS
                        else "most blocks"))
-    esz = x.element_size()
-    flops = 2.0 * b * h * h * 9 * (c1 + c2) * co
-    nbytes = esz * (x.numel() + (0 if x2 is None else x2.numel()) + w.numel()
-                    + got.numel() + (0 if residual is None else
-                                     residual.numel())) + 8 * co
-    bound = bound_ms(nbytes, flops, dtype)
+    flops, bound = conv_bound(h, c1, c2, co, res, dtype, b)
     return dict(row, ms=kern, host_ms=host, plain_ms=plain, library_ms=lib,
                 gflop=flops / 1e9,
                 tflops=flops / kern / 1e9,
                 share_of_bound=bound["bound_ms"] / kern, **extra, **bound)
 
 
+def check_direct_plan(kconv, build) -> dict:
+    """The direct kernel's launch plan against the compiled kernel: each
+    tile's shared memory and the blocks one SM holds, as
+    ``conv.DIRECT_TILES`` and ``direct_smem_bytes`` assume them."""
+    lib = build.load_library()
+    tiles = {}
+    for tile, (per_sm, speed) in kconv.DIRECT_TILES.items():
+        got = (lib.ws_conv3x3_direct_smem_bytes(*tile),
+               lib.ws_conv3x3_direct_blocks_per_sm(*tile))
+        if got != (kconv.direct_smem_bytes(tile), per_sm):
+            raise AssertionError(f"direct tile {tile}: the kernel has smem "
+                                 f"and blocks per SM {got}, the plan "
+                                 f"{(kconv.direct_smem_bytes(tile), per_sm)}")
+        tiles[str(tile)] = dict(smem_bytes=got[0], blocks_per_sm=got[1],
+                                relative_speed=speed)
+    return dict(phase="direct_plan", tiles=tiles)
+
+
 def check_conv(kconv, gen) -> list[dict]:
     """The wgmma kernel at every call site at both production batches and
     the production eval's first (its tile, and so its template instance
-    and grid, depends on the batch), untimed at phase 7's other batches,
-    the direct kernel at an fp32 and a ragged-channel shape."""
+    and grid, depends on the batch), untimed at phase 7's other batches;
+    the direct kernel at every call site in fp32 (the fused fp32 path,
+    fused mode "on") at both production batches and untimed at the fp32
+    parity batch, and at a ragged-channel bf16 shape."""
     rows = [conv_case(kconv, *site[:6], torch.bfloat16, b, gen)
             for b in CONV_B for site in CONV_SITES]
     rows += [conv_case(kconv, *site[:6], torch.bfloat16, b, gen, timed=False)
              for b in EVAL_B if b not in CONV_B for site in CONV_SITES]
-    rows.append(conv_case(kconv, "layer1 conv+res fp32", 56, 64, 0, 64,
-                          True, torch.float32, 6, gen))
+    rows += [conv_case(kconv, *site[:6], torch.float32, b, gen)
+             for b in PRODUCTION_B for site in CONV_SITES]
+    rows += [conv_case(kconv, *site[:6], torch.float32, FP32_PARITY_B, gen,
+                       timed=False) for site in CONV_SITES]
     rows.append(conv_case(kconv, "ragged 96+32->70 bf16", 28, 96, 32, 70,
                           False, torch.bfloat16, 6, gen))
     return rows
 
 
-def conv_per_step(rows: list[dict], b: int, step: str) -> dict:
-    """The fused calls of one bf16 ``step`` ("update_map": 16, "act": 20)
-    at batch b, summed by call site."""
+def conv_per_step(rows: list[dict], b: int, step: str,
+                  dtype: str = "bfloat16") -> dict:
+    """The fused calls of one ``step`` ("update_map": 16, "act": 20) at
+    batch b in ``dtype`` (bf16: the wgmma kernel; fp32: the direct one),
+    summed by call site."""
     col = 6 + STEP_KINDS.index(step)
     per_step = {s[0]: s[col] for s in CONV_SITES if s[col]}
     if sum(per_step.values()) != CONV_PER_STEP[step]:
         raise AssertionError(f"CONV_SITES: {per_step} for one {step} step")
-    sites = [r for r in rows if r["B"] == b and r["dtype"] == "bfloat16"
-             and r["site"] in per_step]
-    t = {k: sum(r[k] * per_step[r["site"]] for r in sites)
-         for k in ("ms", "host_ms", "direct_ms", "plain_ms", "library_ms",
-                   "bound_ms", "bytes_ms", "ops_ms")}
+    sites = [r for r in rows if r["B"] == b and r["dtype"] == dtype
+             and r["site"] in per_step and "ms" in r]
+    if len(sites) != len(per_step):
+        raise AssertionError(f"{dtype} B={b}: timed sites {len(sites)}")
+    keys = ["ms", "host_ms", "plain_ms", "library_ms", "bound_ms",
+            "bytes_ms", "ops_ms"] + (["direct_ms"] if dtype == "bfloat16"
+                                     else [])
+    t = {k: sum(r[k] * per_step[r["site"]] for r in sites) for k in keys}
     return dict(phase="conv_per_step", step=step, B=b,
-                calls=CONV_PER_STEP[step], dtype="bfloat16", **t,
+                calls=CONV_PER_STEP[step], dtype=dtype, **t,
+                share_of_bound=t["bound_ms"] / t["ms"],
                 below_library=t["ms"] < t["library_ms"],
                 sites_slower_than_library=[r["site"] for r in sites
                                            if r["ms"] > r["library_ms"]])
 
 
-def sweep_tiles(kconv, gen) -> list[dict]:
-    """(``--sweep-tiles``) The wgmma kernel's device ms with each tile of
-    ``WGMMA_TILES`` no wider than Co, at every distinct call site and
-    production batch, beside cuDNN's ms and the tile that ``wgmma_tile``
-    picks."""
-    rows, seen = [], set()
+def distinct_sites():
+    """(b, site) for each distinct call shape at both production batches."""
+    seen = set()
     for b in PRODUCTION_B:
-        for name, h, c1, c2, co, res, *_ in CONV_SITES:
-            if (b, h, c1, c2, co, res) in seen:
-                continue
-            seen.add((b, h, c1, c2, co, res))
+        for site in CONV_SITES:
+            if (b, *site[1:6]) not in seen:
+                seen.add((b, *site[1:6]))
+                yield b, site
+
+
+def sweep_tiles(kconv, gen) -> list[dict]:
+    """(``--sweep-tiles``) The wgmma kernel's device ms (bf16) with each
+    tile of ``WGMMA_TILES`` and the direct kernel's (fp32) with each tile
+    of ``DIRECT_TILES``, no wider than Co, at every distinct call site and
+    production batch, beside cuDNN's ms and the tile that ``wgmma_tile`` /
+    ``direct_tile`` picks."""
+    rows = []
+    for b, (name, h, c1, c2, co, res, *_) in distinct_sites():
+        for dtype in (torch.bfloat16, torch.float32):
             x, x2, w, scale, bias, r = conv_operands(
-                h, c1, c2, co, res, torch.bfloat16, b, gen)
-            wp = kconv.pack_weight(w)
-            times = {str(t): cuda_ms(
-                lambda t=t: kconv.conv3x3_bn_relu_wgmma(
-                    x, wp, scale, bias, True, r, x2, tile=t), 20)[0]
-                for t in kconv.WGMMA_TILES if t[1] <= max(co, 64)}
+                h, c1, c2, co, res, dtype, b, gen)
+            if dtype == torch.bfloat16:
+                wp = kconv.pack_weight(w)
+                times = {str(t): cuda_ms(
+                    lambda t=t: kconv.conv3x3_bn_relu_wgmma(
+                        x, wp, scale, bias, True, r, x2, tile=t), 20)[0]
+                    for t in kconv.WGMMA_TILES if t[1] <= max(co, 64)}
+                pick = kconv.wgmma_tile(b, h, h, c1 + c2, co)
+            else:
+                times = {str(t): cuda_ms(
+                    lambda t=t: kconv.conv3x3_bn_relu_direct(
+                        x, w, scale, bias, True, r, x2, tile=t),
+                    10 if h >= 112 else 20)[0]
+                    for t in kconv.DIRECT_TILES if t[2] <= max(co, 64)}
+                pick = kconv.direct_tile(b, h, h, c1 + c2, co)
             rows.append(dict(
                 phase="sweep_tiles", B=b, site=name,
+                dtype=str(dtype).split(".")[-1],
                 library_ms=cuda_ms(cudnn_call(x, x2, w, scale, bias, r),
                                    20)[0],
-                pick=str(kconv.wgmma_tile(b, h, h, c1 + c2, co)),
-                ms_by_tile=times))
+                pick=str(pick), ms_by_tile=times))
+    return rows
+
+
+def direct_vs(kconv, build, src: Path, gen) -> list[dict]:
+    """(``--direct-vs SRC``) The direct kernel against an earlier version
+    of its source (``SRC``: a ``conv3x3.cu`` whose
+    ``ws_conv3x3_bn_act_f32`` takes no tile, as the first version's did),
+    built into a
+    library of its own under ``build/``, at every distinct fp32 call site
+    at both production batches: the earlier kernel held against the twin,
+    then device ms in turns earlier, current, current, earlier, beside
+    cuDNN (TF32 off) and the fp32 bound."""
+    out_dir = build.BUILD_ROOT / "direct_vs"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    lib = out_dir / "libdirect_vs.so"
+    proc = subprocess.run(
+        [build._nvcc(), *build.NVCC_FLAGS, "-I", str(build.CSRC), "-shared",
+         "-o", str(lib), str(src)], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"--direct-vs {src}: nvcc failed:\n{proc.stdout}")
+    fn = ctypes.CDLL(str(lib)).ws_conv3x3_bn_act_f32
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    rows = []
+    for b, (name, h, c1, c2, co, res, *_) in distinct_sites():
+        x, x2, w, scale, bias, r = conv_operands(h, c1, c2, co, res,
+                                                 torch.float32, b, gen)
+        out = torch.empty(b, h, h, co, device=x.device)
+
+        def earlier():
+            status = fn(x.data_ptr(), None if x2 is None else x2.data_ptr(),
+                        w.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+                        None if r is None else r.data_ptr(), out.data_ptr(),
+                        b, h, h, c1, c2, co, 1,
+                        torch.cuda.current_stream().cuda_stream)
+            build.check(status, "--direct-vs")
+            return out
+
+        def current():
+            return kconv.conv3x3_bn_relu_direct(x, w, scale, bias, True, r,
+                                                x2)
+
+        want = kconv.conv3x3_bn_relu_plain(x, w, scale, bias, True, r, x2)
+        rtol, atol = CONV_TOL[torch.float32]
+        for what, got in (("earlier", earlier()), ("current", current())):
+            torch.cuda.synchronize()
+            if not bool(((got - want).abs()
+                         <= rtol * want.abs() + atol).all()):
+                raise AssertionError(f"--direct-vs {name} B={b}: the {what} "
+                                     "kernel disagrees with the twin")
+        iters = 10 if h >= 112 else 30
+        t = [cuda_ms(fn_, iters)[0]
+             for fn_ in (earlier, current, current, earlier)]
+        _, bound = conv_bound(h, c1, c2, co, res, torch.float32, b)
+        ms, before = (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
+        rows.append(dict(
+            phase="direct_vs", source=str(src), B=b, site=name,
+            tile_th_tw_bn_kc_split_stages=list(
+                kconv.direct_tile(b, h, h, c1 + c2, co)),
+            earlier_ms=[t[0], t[3]], ms=[t[1], t[2]], speedup=before / ms,
+            library_ms=cuda_ms(cudnn_call(x, x2, w, scale, bias, r),
+                               iters)[0],
+            share_of_bound=bound["bound_ms"] / ms,
+            earlier_share_of_bound=bound["bound_ms"] / before, **bound))
     return rows
 
 
@@ -797,18 +927,34 @@ def drive_act(policy, b: int, ksplat, kconv) -> dict:
                 peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
 
 
-def parity_fp32(policy, ksplat, kconv) -> dict:
-    """fp32 parity mode at B=2 on the card vs the same port on the CPU,
-    over act, update_map, update_map, act: the maps at every step, and at
-    each act the waypoint, value, hidden state, semantic logits and
-    attention weights, each within 1e-3 of its range on the CPU."""
+@contextlib.contextmanager
+def fused_mode(kconv, mode: str):
+    """The port's fused-conv mode set to ``mode`` for the block, "auto"
+    after it."""
+    kconv.set_fused_conv_mode(mode)
+    try:
+        yield
+    finally:
+        kconv.set_fused_conv_mode("auto")
+
+
+def parity_fp32(policy, ksplat, kconv, mode: str = "auto") -> dict:
+    """fp32 at B=2 on the card vs the same port on the CPU, over act,
+    update_map, update_map, act: the maps at every step, and at each act
+    the waypoint, value, hidden state, semantic logits and attention
+    weights, each within 1e-3 of its range on the CPU. Fused mode "auto"
+    keeps the library convs (the splat only); "on" sends the fused sites
+    through the direct kernel on the card (16 an update_map, 20 an act)
+    and through its twin on the CPU. Launches are checked step by step."""
     from ws_mgmap_tpu_torch.tools.synthetic import wall_obs
     from ws_mgmap_tpu_torch.train.rollout import RolloutEngine
 
-    b, steps = 2, 4
+    b, steps = FP32_PARITY_B, 4
     gpu = RolloutEngine(policy, b)
     cpu = RolloutEngine(policy, b, device="cpu")
     gen = np.random.RandomState(7)
+    direct = {k: CONV_PER_STEP[k] if mode == "on" else 0
+              for k in STEP_KINDS}
     reset_launches(ksplat, kconv)
     worst: dict[str, float] = {}
 
@@ -833,26 +979,98 @@ def parity_fp32(policy, ksplat, kconv) -> dict:
             masks[:] = 0.0  # fresh episodes
         if k == 2:
             masks[0] = 0.0  # env 0 starts a new episode
-        if k % 3:
-            hold(k, "ego_map", gpu.update_map(gpu.batch_obs(raw), masks),
-                 cpu.update_map(cpu.batch_obs(raw), masks))
-        else:
-            og = gpu.act(gpu.batch_obs(raw), masks)
-            oc = cpu.act(cpu.batch_obs(raw), masks)
-            for name in ("action", "value", "hidden", "pred_sem_map",
-                         "att_map", "ego_map"):
-                hold(k, name, getattr(og, name), getattr(oc, name))
+        before = launch_counts(ksplat, kconv)
+        with fused_mode(kconv, mode):
+            if k % 3:
+                kind = "update_map"
+                hold(k, "ego_map", gpu.update_map(gpu.batch_obs(raw), masks),
+                     cpu.update_map(cpu.batch_obs(raw), masks))
+            else:
+                kind = "act"
+                og = gpu.act(gpu.batch_obs(raw), masks)
+                oc = cpu.act(cpu.batch_obs(raw), masks)
+                for name in ("action", "value", "hidden", "pred_sem_map",
+                             "att_map", "ego_map"):
+                    hold(k, name, getattr(og, name), getattr(oc, name))
         hold(k, "global_map", gpu.global_map, cpu.global_map)
-    launches = launch_counts(ksplat, kconv)
-    if launches["splat_max"] != steps:
-        raise AssertionError(f"fp32: splat launches {launches['splat_max']}"
-                             f" != {steps}")
-    if launches["conv_wgmma"] or launches["conv_direct"]:
-        raise AssertionError(f"fp32 parity mode must keep the library conv: "
-                             f"{launches}")
-    return dict(phase="fp32_parity", B=b, steps=["act", "update_map",
-                                                 "update_map", "act"],
-                max_err_over_range=worst, launches=launches)
+        ran = {key: v - before[key]
+               for key, v in launch_counts(ksplat, kconv).items()}
+        want = {"splat_max": 1, "conv_wgmma": 0, "conv_direct": direct[kind]}
+        if ran != want:
+            raise AssertionError(f"fp32 {mode} step {k} ({kind}): launches "
+                                 f"{ran}, expected {want}")
+    return dict(phase="fp32_parity", mode=mode, B=b,
+                steps=["act", "update_map", "update_map", "act"],
+                max_err_over_range=worst,
+                launches=launch_counts(ksplat, kconv))
+
+
+def drive_fp32_steps(policy, ksplat, kconv) -> list[dict]:
+    """The fp32 rollout steps (``MODEL.ROLLOUT_BF16`` False, the default)
+    at B=6 and B=24, fused mode "auto" (cuDNN convs, BN unfused) against
+    "on" (the fused sites through the direct kernel), paired in this call:
+    a map-update step and an act step, each timed in turns auto, on, on,
+    auto, each turn the bf16 drives' rounds (median of 5 rounds of 8 steps
+    on the host clock after 2 warm steps). Every step's launches are
+    checked: 1 splat, and under "on" 16 direct an update_map and 20 an
+    act, none under "auto"."""
+    from ws_mgmap_tpu_torch.tools.synthetic import (instruction_tokens,
+                                                    wall_obs)
+    from ws_mgmap_tpu_torch.train.rollout import RolloutEngine
+
+    rows = []
+    for b in PRODUCTION_B:
+        eng = RolloutEngine(policy, b)
+        gen = np.random.RandomState(200 + b)
+        tok = instruction_tokens(b, gen)
+        obs = eng.batch_obs(wall_obs(b, math.radians(15), gen, tokens=tok))
+        ones = np.ones((b, 1))
+        steps = {"act": lambda: eng.act(obs, ones),
+                 "update_map": lambda: eng.update_map(obs, ones)}
+        eng.act(obs, np.zeros((b, 1)))  # a fresh episode, text cached
+        reset_launches(ksplat, kconv)
+        row = dict(phase="fp32_steps", B=b, dtype="float32")
+        counted = {"act": {"auto": 0, "on": 0},
+                   "update_map": {"auto": 0, "on": 0}}
+        warm, rounds, per_round = 2, 5, 8
+        for kind, step in steps.items():
+            ms = {"auto": [], "on": []}
+            for mode in ("auto", "on", "on", "auto"):
+                with fused_mode(kconv, mode):
+                    before = launch_counts(ksplat, kconv)
+                    step()
+                    ran = {k: v - before[k]
+                           for k, v in launch_counts(ksplat, kconv).items()}
+                    want = {"splat_max": 1, "conv_wgmma": 0,
+                            "conv_direct": (CONV_PER_STEP[kind]
+                                            if mode == "on" else 0)}
+                    if ran != want:
+                        raise AssertionError(
+                            f"fp32 B={b} {kind} {mode}: launches {ran}, "
+                            f"expected {want}")
+                    for _ in range(warm - 1):
+                        step()
+                    ms[mode].append(host_ms(step, rounds, per_round))
+                counted[kind][mode] += warm + rounds * per_round
+            for mode, turns in ms.items():
+                row[f"{kind}_{mode}_ms"] = [t[0] for t in turns]
+                row[f"{kind}_{mode}_ms_range"] = [
+                    min(t[1][0] for t in turns), max(t[1][1] for t in turns)]
+            row[f"{kind}_on_over_auto"] = (float(np.mean(
+                row[f"{kind}_on_ms"])) / float(np.mean(
+                    row[f"{kind}_auto_ms"])))
+        launches = launch_counts(ksplat, kconv)
+        steps_run = sum(n for c in counted.values() for n in c.values())
+        expect = {"splat_max": steps_run, "conv_wgmma": 0,
+                  "conv_direct": sum(CONV_PER_STEP[k] * c["on"]
+                                     for k, c in counted.items())}
+        if launches != expect:
+            raise AssertionError(f"fp32 B={b}: launches {launches}, "
+                                 f"expected {expect}")
+        row.update(steps=counted, launches=launches,
+                   peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
+        rows.append(row)
+    return rows
 
 
 # --------------------------------------------------------------------------
@@ -2550,6 +2768,9 @@ def main() -> int:
     ap.add_argument("--splat-ablation", action="store_true",
                     help="also time the splat with parts of it taken out "
                          "(phase 2a')")
+    ap.add_argument("--direct-vs", type=Path, metavar="SRC",
+                    help="also time an earlier conv3x3.cu (SRC) against the "
+                         "direct kernel at every fp32 site (phase 2b'')")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2588,6 +2809,7 @@ def main() -> int:
     if args.splat_ablation:
         for row in splat_ablation(ksplat, build, gen, policy):
             emit(row)
+    emit(check_direct_plan(kconv, build))
     conv_rows = check_conv(kconv, gen)
     emit(dict(phase="kernels", kernel="conv3x3_bn_relu", cases=conv_rows))
     conv_t = {}
@@ -2595,8 +2817,14 @@ def main() -> int:
         for step in STEP_KINDS:
             conv_t[b, step] = conv_per_step(conv_rows, b, step)
             emit(conv_t[b, step])
+    for b in PRODUCTION_B:  # the fp32 fused path's convs (fused mode "on")
+        for step in STEP_KINDS:
+            emit(conv_per_step(conv_rows, b, step, "float32"))
     if args.sweep_tiles:
         for row in sweep_tiles(kconv, gen):
+            emit(row)
+    if args.direct_vs:
+        for row in direct_vs(kconv, build, args.direct_vs.resolve(), gen):
             emit(row)
 
     # phase 3: the map-update step at full width, production mode
@@ -2609,8 +2837,17 @@ def main() -> int:
     for r in act_rows:
         emit(r)
 
-    # phase 4: fp32 parity mode, card vs CPU
-    emit(parity_fp32(random_policy(1, rotate_in_splat=False), ksplat, kconv))
+    # phase 4: fp32 parity, card vs CPU: library convs ("auto"), then the
+    # fused fp32 path through the direct kernel ("on")
+    parity_policy = random_policy(1, rotate_in_splat=False)
+    parity_rows = [parity_fp32(parity_policy, ksplat, kconv, mode)
+                   for mode in ("auto", "on")]
+    for r in parity_rows:
+        emit(r)
+    # phase 4b: the fp32 rollout steps, "auto" against "on", timed
+    fp32_rows = drive_fp32_steps(parity_policy, ksplat, kconv)
+    for r in fp32_rows:
+        emit(r)
 
     # phase 5: the training step at full width, and its card-vs-CPU parity
     train_row = drive_train(ksplat, kconv)
@@ -2649,20 +2886,24 @@ def main() -> int:
                                      "did not check")
 
     # the kernels line: launches from the main-path runs of phases 3, 3b,
-    # 5, 7, 8 and 9 (the training step launches none; phase 7's and 9's
-    # evaluations, phase 8's runs and phase 9's split steps, each counted
-    # from 0); times for one B=6 bf16
-    # map-update step (splat once, the 16 fused convs by call site; the
-    # act step's 20 are in its conv_per_step line); the direct conv is off
-    # the main path and timed at the fp32 site
+    # 4 and 4b (the fp32 path under "on"), 5, 7, 8 and 9 (the training
+    # step launches none; phase 7's and 9's evaluations, phase 8's runs
+    # and phase 9's split steps, each counted from 0); times for one B=6
+    # bf16 map-update step (splat once, the 16 fused convs by call site;
+    # the act step's 20 are in its conv_per_step line); the direct conv
+    # timed at the fp32 layer1 conv+res site at B=6, the site it has been
+    # timed at from its first version (the fp32 steps' sums are in their
+    # own conv_per_step lines)
     sp = splat_rows[1]
     conv6 = conv_t[6, "update_map"]
-    direct = next(r for r in conv_rows if r["dtype"] == "float32")
+    direct = next(r for r in conv_rows if r["dtype"] == "float32"
+                  and r["site"] == "layer1 conv+res" and r["B"] == 6)
 
     def launched(key):
         return sum(r["launches"][key]
-                   for r in (slice_rows + act_rows + [train_row]
-                             + eval_rows + cli_rows + video_rows)
+                   for r in (slice_rows + act_rows + parity_rows + fp32_rows
+                             + [train_row] + eval_rows + cli_rows
+                             + video_rows)
                    if "launches" in r)
 
     def bound_by(ops_ms, bytes_ms):

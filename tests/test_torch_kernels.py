@@ -276,13 +276,7 @@ def test_splat_kernel_rejects_bad_operands(cuda):
     assert ksplat.splat_max.launches == before
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("shape", [(2, 16, 24, 8, 0, 16),
-                                   (1, 32, 20, 5, 0, 7),
-                                   (2, 28, 28, 96, 32, 70),
-                                   (1, 14, 14, 64, 0, 130)])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_conv_kernel_matches_twin(cuda, shape, dtype):
+def _direct_operands(cuda, shape, dtype, res):
     b, h, w, c1, c2, co = shape
     g = torch.Generator(device=cuda).manual_seed(c1 * 100 + co)
 
@@ -293,19 +287,81 @@ def test_conv_kernel_matches_twin(cuda, shape, dtype):
     x2 = rnd(b, h, w, c2).to(dtype) if c2 else None
     k = rnd(3, 3, c1 + c2, co, scale=0.1).to(dtype)
     s, bb = rnd(co).abs() + 0.5, rnd(co, scale=0.1)
-    res = None if c2 else rnd(b, h, w, co).to(dtype)
+    r = rnd(b, h, w, co).to(dtype) if res else None
+    return x, x2, k, s, bb, r
+
+
+def _check_direct(x, x2, k, s, bb, res, relu=True):
     wg, direct = _conv_launches()
-    got = kconv.conv3x3_bn_relu(x, k, s, bb, relu=True, residual=res, x2=x2)
+    got = kconv.conv3x3_bn_relu(x, k, s, bb, relu=relu, residual=res, x2=x2)
     torch.cuda.synchronize()
     # ragged channels and fp32 take the direct kernel
     assert _conv_launches() == (wg, direct + 1)
-    want = kconv.conv3x3_bn_relu_plain(x, k, s, bb, relu=True, residual=res,
+    want = kconv.conv3x3_bn_relu_plain(x, k, s, bb, relu=relu, residual=res,
                                        x2=x2)
     # both sum in fp32 in different orders; bf16 outputs may then round
     # one bf16 ulp (2^-7 relative) apart
-    rtol = 2**-7 if dtype == torch.bfloat16 else 1e-4
-    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
-                               atol=1e-3 if dtype == torch.bfloat16 else 1e-4)
+    bf16 = x.dtype == torch.bfloat16
+    torch.testing.assert_close(got.float(), want.float(),
+                               rtol=2**-7 if bf16 else 1e-4,
+                               atol=1e-3 if bf16 else 1e-4)
+
+
+# (B, H, W, C1, C2, Co): ragged channels; then H and W that no tile
+# divides, Ci below one chunk (8 channels), an x/x2 split inside a chunk
+# (C1 = 12), Co = 1 mod 4 (the fp32 4-byte copies)
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(2, 16, 24, 8, 0, 16),
+                                   (1, 32, 20, 5, 0, 7),
+                                   (2, 28, 28, 96, 32, 70),
+                                   (1, 14, 14, 64, 0, 130),
+                                   (2, 13, 22, 32, 0, 64),
+                                   (1, 9, 11, 5, 0, 16),
+                                   (2, 20, 20, 12, 20, 64),
+                                   (1, 18, 18, 64, 0, 65)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv_kernel_matches_twin(cuda, shape, dtype):
+    _check_direct(*_direct_operands(cuda, shape, dtype, res=not shape[4]))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tile", list(kconv.DIRECT_TILES))
+@pytest.mark.parametrize("case", [((2, 20, 36, 24, 40, 136), False, True),
+                                  ((1, 17, 30, 64, 0, 72), True, False),
+                                  ((2, 11, 13, 6, 3, 70), False, True)])
+def test_conv_direct_every_tile_matches_twin(cuda, monkeypatch, tile, case):
+    shape, res, relu = case
+    monkeypatch.setattr(kconv, "direct_tile", lambda *a: tile)
+    _check_direct(*_direct_operands(cuda, shape, torch.float32, res), relu)
+
+
+@pytest.mark.gpu
+def test_conv_direct_at_a_224_site_fp32(cuda):
+    # conv_original_size2 at the fp32 parity batch
+    _check_direct(*_direct_operands(cuda, (2, 224, 224, 128, 64, 64),
+                                    torch.float32, res=False))
+
+
+@pytest.mark.gpu
+def test_conv_direct_unaligned_operands(cuda):
+    # a view 4 bytes off 16-byte alignment takes the 4-byte copies
+    x, _, k, s, bb, r = _direct_operands(cuda, (2, 12, 20, 16, 0, 32),
+                                         torch.float32, res=True)
+    shifted = torch.empty(x.numel() + 1, device=cuda)
+    shifted[1:] = x.flatten()
+    _check_direct(shifted[1:].view(x.shape), None, k, s, bb, r)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tile", list(kconv.DIRECT_TILES))
+def test_conv_direct_plan_matches_the_kernel(cuda, tile):
+    # shared memory and blocks an SM holds, as the plan assumes
+    from ws_mgmap_tpu_torch.ops.kernels import build
+    lib = build.load_library()
+    assert lib.ws_conv3x3_direct_smem_bytes(*tile) == \
+        kconv.direct_smem_bytes(tile)
+    assert lib.ws_conv3x3_direct_blocks_per_sm(*tile) == \
+        kconv.DIRECT_TILES[tile][0]
 
 
 @pytest.mark.gpu
@@ -319,6 +375,10 @@ def test_conv_kernel_rejects_bad_operands(cuda):
         kconv.conv3x3_bn_relu(x.permute(0, 2, 1, 3), w, s, b)
     with pytest.raises(TypeError):
         kconv.conv3x3_bn_relu(x.half(), w.half(), s, b)
+    before = _conv_launches()
+    with pytest.raises(ValueError):  # a tile the kernel has no instance of
+        kconv.conv3x3_bn_relu_direct(x, w, s, b, tile=(8, 8, 128, 8, 1, 3))
+    assert _conv_launches() == before
 
 
 # (B, H, W, C1, C2, Co, residual, relu): edge-heavy H/W (14, 28, 56, and

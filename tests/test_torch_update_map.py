@@ -102,12 +102,12 @@ def test_weight_carry_over(weights):
     assert set(policy.state_dict()) == set(sd)
 
 
-def _run(weights, rotate, bf16):
+def _run(weights, rotate, bf16, fused=None):
     jeng = JEngine(JPolicy(jax_config(rotate)), weights, B,
                    compute_dtype=jnp.bfloat16 if bf16 else None)
     teng = RolloutEngine(port_policy(weights, rotate), B, device="cpu",
                          compute_dtype=torch.bfloat16 if bf16 else None)
-    if bf16:
+    if bf16 if fused is None else fused:
         jconv.set_fused_conv_mode("on")
         kconv.set_fused_conv_mode("on")
     out = []
@@ -131,6 +131,27 @@ def test_update_map_fp32_parity_mode(weights):
     for t, (jego, ego, jglob, glob) in enumerate(_run(weights, False, False)):
         # fp32 UNet sums in another order plus the grid_sample coordinate
         # rounding of the two rotations: 1e-4 of the map's range
+        scale = float(np.abs(jglob).max())
+        assert scale > 0
+        np.testing.assert_allclose(ego, jego, rtol=0, atol=1e-4 * scale,
+                                   err_msg=f"ego step {t}")
+        np.testing.assert_allclose(glob, jglob, rtol=0, atol=1e-4 * scale,
+                                   err_msg=f"global step {t}")
+
+
+def test_update_map_fp32_fused_mode(weights, monkeypatch):
+    # the fp32 fused path (fused mode "on" in both packages): JAX's Pallas
+    # kernel in interpret mode against the port's direct-kernel twin
+    calls = []
+    direct = kconv.KERNELS["direct"]
+    monkeypatch.setitem(kconv.KERNELS, "direct",
+                        lambda *a, **k: calls.append(1) or direct(*a, **k))
+    out = _run(weights, False, False, fused=True)
+    # the UNet's eligible convs went through the direct kernel's wrapper
+    assert calls
+    for t, (jego, ego, jglob, glob) in enumerate(out):
+        # fp32 on both sides, sums in other orders: 1e-4 of the range, as
+        # in the library-conv parity mode
         scale = float(np.abs(jglob).max())
         assert scale > 0
         np.testing.assert_allclose(ego, jego, rtol=0, atol=1e-4 * scale,

@@ -32,8 +32,10 @@ SIGNATURES = {
     "ws_splat_max": ([_VP] * 3 + [_INT] * 7 + [_VP], _INT),
     "ws_splat_max_active_clusters": ([_INT] * 6 + [_VP], _INT),
     "ws_splat_smem_bytes": ([_INT] * 2, _INT),
-    "ws_conv3x3_bn_act_f32": ([_VP] * 7 + [_INT] * 7 + [_VP], _INT),
-    "ws_conv3x3_bn_act_bf16": ([_VP] * 7 + [_INT] * 7 + [_VP], _INT),
+    "ws_conv3x3_bn_act_f32": ([_VP] * 7 + [_INT] * 13 + [_VP], _INT),
+    "ws_conv3x3_bn_act_bf16": ([_VP] * 7 + [_INT] * 13 + [_VP], _INT),
+    "ws_conv3x3_direct_smem_bytes": ([_INT] * 6, _INT),
+    "ws_conv3x3_direct_blocks_per_sm": ([_INT] * 6, _INT),
     "ws_conv3x3_wgmma_bf16": ([_VP] * 7 + [_INT] * 9 + [_VP], _INT),
 }
 # csrc/status.cuh: a status from here on is this plus a CUresult

@@ -13,15 +13,17 @@ On the card two hand-written kernels compute it, chosen by shape
 - :func:`conv3x3_bn_relu_wgmma` (``csrc/conv3x3_wgmma.cu``): an implicit
   GEMM on the bf16 tensor cores, fed by TMA, for bf16 with C1 and C2
   multiples of 64 and Co a multiple of 8 (every UNet site at width 1);
-- :func:`conv3x3_bn_relu_direct` (``csrc/conv3x3.cu``): a direct conv in
-  fp32 FMA for fp32 (which the tensor cores would round to TF32) and
-  ragged channel counts.
+- :func:`conv3x3_bn_relu_direct` (``csrc/conv3x3.cu``): an implicit GEMM
+  in fp32 FMA on the CUDA cores, fed by a cp.async ring, for fp32 (which
+  the tensor cores would round to TF32) and ragged channel counts; tile
+  from :func:`direct_tile`.
 
 A wrapper runs the twin only for a CPU tensor; for a CUDA tensor it
 launches its kernel or raises.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -34,6 +36,25 @@ TILE_W = 8  # the wgmma kernel's tile width in pixels
 # (TH, BN) tiles of the wgmma kernel; on equal L2 traffic the first wins
 WGMMA_TILES = ((16, 128), (8, 128), (16, 64), (8, 64))
 MIN_BLOCKS = 2 * NUM_SMS // 3  # a tile must keep two thirds of the SMs busy
+# The direct kernel's tiles, as compiled in csrc/conv3x3.cu
+# (WS_DIRECT_TILES): (TH, TW, BN, KC, split, stages) is TH x TW pixels x
+# BN channels, the input walked in chunks of KC channels through a ring of
+# `stages`, each chunk's work shared by `split` thread groups. Each maps
+# to (blocks one SM holds, by the card's occupancy calculator and held
+# against it by a card test; device speed where every tile fills the card
+# -- the 224^2 sites -- relative to the fastest), both measured on an H100
+# (chip_smoke.py --sweep-tiles).
+DIRECT_TILES = {
+    (8, 16, 64, 16, 1, 2): (2, 1.0),
+    (8, 16, 64, 16, 3, 2): (1, 0.97),
+    (8, 8, 64, 16, 2, 2): (2, 0.87),
+    (8, 8, 64, 8, 2, 3): (3, 0.87),
+}
+# direct_cost's latency terms (fitted to the same sweep): a lone warp
+# issues FMAs at this share of its SM sub-partition's rate, and each chunk
+# adds this many cycles of barrier and copy wait to a block's critical path
+DIRECT_ONE_WARP_RATE = 0.7
+DIRECT_CHUNK_CYCLES = 1000
 
 
 def fold_bn(conv_bias: torch.Tensor | None, gamma: torch.Tensor,
@@ -137,6 +158,63 @@ def wgmma_grid(b: int, h: int, w: int, ci: int, co: int
     """The wgmma kernel's launch grid (pixel tiles, Co tiles, images)."""
     th, bn = wgmma_tile(b, h, w, ci, co)
     return (math.ceil(h / th) * math.ceil(w / TILE_W), math.ceil(co / bn), b)
+
+
+def direct_smem_bytes(tile) -> int:
+    """The direct kernel's dynamic shared memory for ``tile``, in fp32: a
+    ring of ``stages`` stages, each the (TH+2) x (TW+2) input halo of one
+    chunk (a pixel's KC channels padded by 4 floats) and the chunk's 9 x
+    KC x BN weight slice; after the ring, the same memory
+    holds the partial tiles of ``split - 1`` thread groups."""
+    th, tw, bn, kc, split, stages = tile
+    ring = stages * ((th + 2) * (tw + 2) * (kc + 4) + 9 * kc * bn)
+    return 4 * max(ring, (split - 1) * th * tw * bn)
+
+
+def direct_grid(b: int, h: int, w: int, co: int, tile
+                ) -> tuple[int, int, int]:
+    """The direct kernel's launch grid for ``tile`` (pixel tiles, Co
+    tiles, images); block (x, y, z) owns rows ``(x // ceil(W/TW)) * TH``,
+    columns ``(x % ceil(W/TW)) * TW`` and channels ``y * BN`` onwards of
+    image z."""
+    th, tw, bn = tile[:3]
+    return (math.ceil(h / th) * math.ceil(w / tw), math.ceil(co / bn), b)
+
+
+def direct_cost(b: int, h: int, w: int, ci: int, co: int, tile) -> float:
+    """The direct kernel's time with ``tile`` in SM clock cycles, as
+    modelled: each SM takes ceil(blocks / 132) blocks in rounds of the
+    tile's blocks per SM. A round lasts the longer of its FMA issue time
+    (every warp's 768-FMA work units, 4 sub-partitions an SM issuing one
+    warp instruction a cycle at the tile's relative speed) and one block's
+    critical path (its warps' units at :data:`DIRECT_ONE_WARP_RATE`, plus
+    :data:`DIRECT_CHUNK_CYCLES` a chunk)."""
+    th, tw, bn, kc, split, _ = tile
+    per_sm, speed = DIRECT_TILES[tile]
+    warps = split * th * tw * bn // 64 // 32
+    chunks = math.ceil(ci / kc)
+    units = chunks * (3 * kc // 4) / split  # each warp's work units
+    path = units * 768 / DIRECT_ONE_WARP_RATE + chunks * DIRECT_CHUNK_CYCLES
+    left, cost = math.ceil(math.prod(direct_grid(b, h, w, co, tile))
+                           / NUM_SMS), 0.0
+    while left > 0:
+        n = min(per_sm, left)
+        left -= n
+        cost += max(n * warps / 4 * units * 768 / speed, path)
+    return cost
+
+
+@functools.lru_cache(maxsize=None)
+def direct_tile(b: int, h: int, w: int, ci: int, co: int
+                ) -> tuple[int, int, int, int, int, int]:
+    """The tile of :data:`DIRECT_TILES` no wider than Co with the least
+    :func:`direct_cost`. The kernel is bound by its FMAs, so the L2-bytes
+    rule of :func:`wgmma_tile` does not apply: on a full card the widest
+    unsplit tile wins, and where the grid leaves SMs idle or one warp a
+    sub-partition, split tiles and short chunks cut each block's critical
+    path."""
+    fits = [t for t in DIRECT_TILES if t[2] <= max(co, 64)]
+    return min(fits, key=lambda t: direct_cost(b, h, w, ci, co, t))
 
 
 def _check(what: str, x, co: int, w_shape, w, scale, bias, residual, x2,
@@ -243,9 +321,12 @@ def conv3x3_bn_relu_direct(x: torch.Tensor, w: torch.Tensor,
                            scale: torch.Tensor, bias: torch.Tensor,
                            relu: bool = True,
                            residual: torch.Tensor | None = None,
-                           x2: torch.Tensor | None = None) -> torch.Tensor:
-    """The direct FMA kernel ``csrc/conv3x3.cu``: fp32 or bf16, w HWIO,
-    any channel counts. A CPU tensor takes the twin."""
+                           x2: torch.Tensor | None = None,
+                           tile: tuple[int, ...] | None = None
+                           ) -> torch.Tensor:
+    """The FMA kernel ``csrc/conv3x3.cu``: fp32 or bf16, w HWIO, any
+    channel counts. ``tile`` (one of :data:`DIRECT_TILES`) overrides
+    :func:`direct_tile`'s pick. A CPU tensor takes the twin."""
     what = "conv3x3_bn_relu_direct"
     if residual is not None and x2 is not None:
         raise ValueError(f"{what}: residual and x2 are never combined")
@@ -258,8 +339,13 @@ def conv3x3_bn_relu_direct(x: torch.Tensor, w: torch.Tensor,
     co = w.shape[-1]
     _check(what, x, co, (3, 3, c1 + c2, co), w, scale, bias, residual, x2,
            tuple(fns))
+    if tile is None:
+        b, h, wd, _ = x.shape
+        tile = direct_tile(b, h, wd, c1 + c2, co)
+    elif tuple(tile) not in DIRECT_TILES:
+        raise ValueError(f"{what}: tile {tile} is not one of {DIRECT_TILES}")
     out = _launch(fns[x.dtype], what, x, w, scale, bias, relu, residual, x2,
-                  co)
+                  co, *tile)
     conv3x3_bn_relu_direct.launches += 1
     return out
 
