@@ -61,7 +61,7 @@ with the DD-PPO controller on the CPU in 2 workers; and the controller's
 evaluation and inference through the port's command line
 (``ws_mgmap_tpu_torch/run.py``, in this process): ``FAKESIM_DEBUG.yaml``
 at full width with bf16 rollouts, two DAgger iterations (beta 1, then
-0.75) of collection into the store and teacher-forcing epochs, eval
+0.75) of collection into the store and a teacher-forcing epoch, eval
 while training, the checkpoint folder's evaluation and inference; the
 store read back, each checkpoint loading strictly, no eval-while-training
 failure, every metric finite, each inference episode recorded once, and
@@ -77,8 +77,17 @@ the same engine split over every card (two replicas on ``cuda:0`` where
 there is one card) through two map-update steps, an act and ``keep`` to
 5 and to 4 envs, within ``SPLIT_TOL``, launching once a chunk, both
 timed; and ``SIMULATOR.TYPE "Sim-v0"`` raising ``ImportError`` without
-habitat-sim. Every batch and dtype that phases 7-9 run the kernels at
-must be one that phase 2 held them at.
+habitat-sim. Phase 10: ``ws_mgmap_tpu_torch/tools/cli_rehearsal.py``'s
+four CLI runs (stage-1 train, stage-2 DAgger train from its checkpoint,
+eval, inference) in this process over a tree in the reference's file
+schemas, at full width (224^2 RGB, 256^2 depth, bf16 rollouts, 2 episodes
+a split, 1 DAgger iteration of 1 epoch a stage, episodes of at most 36
+steps): each run's artifacts and wall time, exact launches; and
+``register_and_retrieve`` held against its literal warp chain
+(``register_and_retrieve_reference``) at B=6 on the 240^2 map, 64
+channels, windows near a corner and off the map, within 1e-5. Every
+batch and dtype that phases 7-10 run the kernels at must be one that
+phase 2 held them at.
 
 Each phase prints one JSON line; any failure raises, so the exit code is
 non-zero and no result line is printed. TF32 is off for cuDNN convolutions
@@ -2062,10 +2071,12 @@ CLI_CONFIG = "ws_mgmap_tpu_torch/config/FAKESIM_DEBUG.yaml"
 # bf16 rollouts; cut to depth: splits of 4 FakeSim episodes, not the
 # YAML's 6 (beta 1 collects each once; eval while training runs 2 rounds
 # of the 2 envs, not 3), episodes of at most 36 steps, not 80 (the
-# look-around and 4 decisions; ep_max_len stays 80)
+# look-around and 4 decisions; ep_max_len stays 80), 1 epoch a DAgger
+# iteration, not 2 (room for phase 10: 2 checkpoints)
 CLI_OPTS = ["MODEL.ROLLOUT_BF16", "True",
             "TASK_CONFIG.DATASET.FAKE_EPISODES", "4",
-            "TASK_CONFIG.ENVIRONMENT.MAX_EPISODE_STEPS", "36"]
+            "TASK_CONFIG.ENVIRONMENT.MAX_EPISODE_STEPS", "36",
+            "DAGGER.EPOCHS", "1"]
 # each checkpoint's evaluation: one round of the 2 envs, not the YAML's 3
 # episodes (two rounds)
 CLI_EVAL_EPISODES = 2
@@ -2230,12 +2241,13 @@ def drive_cli(ksplat, kconv) -> list[dict]:
     through the port's CLI, in this process so that launches are counted:
     ``--run-type train`` (2 envs in forkserver workers; 2 DAgger
     iterations, beta 1 then 0.75, each collecting 4 episodes of at most
-    36 steps and training 2 epochs in batches of 2; eval-while-training
-    after each), ``eval`` of the checkpoint folder (4 checkpoints, 2
+    36 steps and training 1 epoch in batches of 2; eval-while-training
+    after each), ``eval`` of the checkpoint folder (2 checkpoints, 2
     val_seen episodes each) and ``inference`` of the last checkpoint on a
-    test split of 3 episodes; the splits cut to 4 FakeSim episodes. Held: the store's records read back, 4
-    checkpoints loading strictly into a fresh policy, no eval-while-
-    training failure logged, every evaluation's 10 metric keys finite
+    test split of 3 episodes; the splits cut to 4 FakeSim episodes. Held:
+    the store's records read back, 2 checkpoints loading strictly into
+    a fresh policy, no eval-while-training failure logged, every
+    evaluation's 10 metric keys finite
     and both JSONs written, each inference episode recorded once, exact
     launches in each run and none in the updates."""
     import shutil
@@ -2760,6 +2772,142 @@ def drive_phase9(policy, ksplat, kconv) -> list[dict]:
         os.chdir(cwd)
 
 
+# --------------------------------------------------------------------------
+# phase 10: the CLI rehearsal on real-format data, the registration oracle
+# --------------------------------------------------------------------------
+# cut to depth: 2 episodes a split, 1 DAgger iteration of 1 epoch a stage,
+# episodes of at most 36 steps (the look-around and 4 decisions)
+REHEARSAL_EPISODES = 2
+REHEARSAL_CAP = 36
+REHEARSAL_OPTS = ["MODEL.ROLLOUT_BF16", "True"]
+REGISTRATION_B = 6
+REGISTRATION_TOL = 1e-5  # abs and rel, tests/test_mapping.py's
+# GPS (m) of each row: centered, inside, near a corner, on the boundary,
+# and two windows fully off the 240^2 map (28.8 m a side)
+REGISTRATION_GPS = [[0.0, 0.0], [3.7, -6.1], [-13.9, 13.6], [14.4, 14.4],
+                    [22.0, -22.0], [-21.0, 18.0]]
+
+
+def rehearsal_full_width(ksplat, kconv) -> list[dict]:
+    """Phase 10a: ``ws_mgmap_tpu_torch/tools/cli_rehearsal.py``'s four
+    runs through the CLI in this process (stage-1 train, stage-2 DAgger
+    train from its checkpoint, eval, inference) over the real-format tree
+    (``{split}.json.gz`` with ``instruction_vocab``, ``embeddings.json.gz``,
+    ``{split}_gt.json.gz``, ``map_data/<split>/ep_<id>.npy``) at full
+    width: the config defaults with the tree's vocabulary, 224^2 RGB and
+    256^2 depth, bf16 rollouts, 2 envs in forkserver workers. Held: each
+    run's artifacts (checkpoints of both stages loading strictly, the
+    metric JSON with every key finite, at least one predicted trajectory)
+    and exactly 1 splat an engine step and 16 wgmma a map-update step or
+    20 an act step; each run's wall time."""
+    import shutil
+    import tempfile
+
+    from ws_mgmap_tpu_torch.config.default import get_config
+    from ws_mgmap_tpu_torch.models.policy import BasePolicy, MGMapConfig
+    from ws_mgmap_tpu_torch.tools import cli_rehearsal as rehearsal
+    from ws_mgmap_tpu_torch.train import checkpoint as ckpt_lib
+
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_rehearsal_"))
+    data = work / "R2R_VLNCE_v1-2_preprocessed"
+    vocab = rehearsal.build_tree(str(data), REHEARSAL_EPISODES)
+    text = rehearsal.rehearsal_yaml(REHEARSAL_EPISODES, len(vocab),
+                                    tiny=False, iterations=1, epochs=1)
+    da_text = rehearsal.rehearsal_yaml(REHEARSAL_EPISODES, len(vocab),
+                                       tiny=False, iterations=1, epochs=1,
+                                       p=0.5)
+    opts = rehearsal.data_opts(str(data), max_steps=REHEARSAL_CAP, rgb=224,
+                               depth=256) + REHEARSAL_OPTS
+    rows = []
+    cwd = os.getcwd()
+    os.chdir(ROOT)
+    try:
+        with EngineCalls() as engine:
+            def run(run_type, cfg_yaml, model_dir, run_opts):
+                name = run_type if run_type != "train" else (
+                    "train_stage2" if "DAGGER.LOAD_FROM_CKPT" in run_opts
+                    else "train_stage1")
+                launches, wall, calls = cli_run(
+                    ["--run-type", run_type, "-c", cfg_yaml, "-e",
+                     model_dir] + run_opts, ksplat, kconv, engine)
+                check_cli_launches(f"rehearsal {name}", launches, calls)
+                if not calls["acts"] + calls["update_maps"]:
+                    raise AssertionError(f"rehearsal {name}: no engine step")
+                rows.append(dict(phase="rehearsal", run=name,
+                                 dtype="bfloat16", wall_s=wall,
+                                 launches=launches, **calls))
+
+            out = rehearsal.rehearse(str(work), run, text, da_text, opts,
+                                     log=lambda m: None)
+        cfg = get_config(str(work / "TINY_REAL.yaml"), opts)
+        for stage in ("stage1_ckpts", "stage2_ckpts"):
+            for path in out[stage]:
+                BasePolicy(MGMapConfig.from_config(cfg.MODEL)).load_state_dict(
+                    ckpt_lib.load_checkpoint(path)["state_dict"], strict=True)
+        if not all(math.isfinite(out["metrics"][k]) for k in METRIC_KEYS):
+            raise AssertionError(f"rehearsal eval: {out['metrics']}")
+        rows.append(dict(
+            phase="rehearsal_artifacts", episodes=REHEARSAL_EPISODES,
+            cap=REHEARSAL_CAP, rgb=224, depth=256, vocab=len(vocab),
+            stage1_ckpts=[Path(p).name for p in out["stage1_ckpts"]],
+            stage2_ckpts=[Path(p).name for p in out["stage2_ckpts"]],
+            checkpoints_load_strict=True, metrics=out["metrics"],
+            predictions=out["predictions"],
+            wall_s=sum(r["wall_s"] for r in rows)))
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(work, ignore_errors=True)
+    return rows
+
+
+def registration_oracle(device: str = "cuda") -> dict:
+    """Phase 10b: ``register_and_retrieve`` (the integer window update)
+    against ``register_and_retrieve_reference`` (the literal paste ->
+    translate -> max -> translate back -> crop -> rotate chain) on the
+    card at full width, fp32: B=6, a 240^2 global map, a 100^2 ego map, 64
+    channels, one map cleared by its mask, windows near a corner and fully
+    off the map; within 1e-5 abs and rel."""
+    from ws_mgmap_tpu_torch.ops import mapping
+
+    p = mapping.MapperParams()
+    b, g, e, c = REGISTRATION_B, p.global_size, p.ego_size, p.map_depth
+    gen = torch.Generator(device=device).manual_seed(10)
+    glob = torch.rand((b, g, g, c), generator=gen, device=device)
+    proj = torch.randn((b, e, e, c), generator=gen, device=device)
+    gps = torch.tensor(REGISTRATION_GPS, device=device)
+    compass = (torch.rand((b, 1), generator=gen, device=device) * 2 - 1
+               ) * math.pi
+    masks = torch.ones((b, 1), device=device)
+    masks[2] = 0.0
+    ego_ref, glob_ref = mapping.register_and_retrieve_reference(
+        glob, proj, gps, compass, masks, p)
+    ego, glob_new = mapping.register_and_retrieve(
+        glob.clone(), proj, gps, compass, masks, p)
+    errs = {}
+    for name, got, want in (("ego_map", ego, ego_ref),
+                            ("global_map", glob_new, glob_ref)):
+        err = (got - want).abs()
+        bad = err > REGISTRATION_TOL + REGISTRATION_TOL * want.abs()
+        if bad.any() or not torch.isfinite(got).all():
+            raise AssertionError(f"registration oracle: {name} differs at "
+                                 f"{int(bad.sum())} entries, max "
+                                 f"{float(err.max())}")
+        errs[name] = float(err.max())
+    off = [i for i, (x, y) in enumerate(REGISTRATION_GPS)
+           if max(abs(x), abs(y)) > (g + e) * p.resolution / 2]
+    if len(off) != 2 or ego[off].abs().max() != 0:
+        raise AssertionError("registration oracle: an off-map window "
+                             "retrieved content")
+    return dict(phase="registration_oracle", B=b, global_size=g,
+                ego_size=e, channels=c, dtype="float32",
+                gps=REGISTRATION_GPS, off_map_rows=off,
+                max_abs_err=errs, tol=REGISTRATION_TOL)
+
+
+def drive_phase10(ksplat, kconv) -> list[dict]:
+    return rehearsal_full_width(ksplat, kconv) + [registration_oracle()]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--sweep-tiles", action="store_true",
@@ -2873,11 +3021,17 @@ def main() -> int:
     for row in video_rows:
         emit(row)
 
-    # each batch and dtype phases 7-9 ran the kernels at was held in
+    # phase 10: the CLI rehearsal on real-format data at full width, and
+    # the registration oracle
+    rehearsal_rows = drive_phase10(ksplat, kconv)
+    for row in rehearsal_rows:
+        emit(row)
+
+    # each batch and dtype phases 7-10 ran the kernels at was held in
     # phase 2
     splat_held = {(r["B"], r["dtype"]) for r in splat_rows}
     wgmma_held = {r["B"] for r in conv_rows if r["variant"] == "wgmma"}
-    for row in eval_rows + cli_rows + video_rows:
+    for row in eval_rows + cli_rows + video_rows + rehearsal_rows:
         for b in row.get("batch_sizes", ()):
             if (b, row["dtype"]) not in splat_held or (
                     row["dtype"] == "bfloat16" and b not in wgmma_held):
@@ -2886,9 +3040,9 @@ def main() -> int:
                                      "did not check")
 
     # the kernels line: launches from the main-path runs of phases 3, 3b,
-    # 4 and 4b (the fp32 path under "on"), 5, 7, 8 and 9 (the training
-    # step launches none; phase 7's and 9's evaluations, phase 8's runs
-    # and phase 9's split steps, each counted from 0); times for one B=6
+    # 4 and 4b (the fp32 path under "on"), 5, 7, 8, 9 and 10 (the training
+    # step launches none; phase 7's and 9's evaluations, phase 8's and
+    # 10's runs and phase 9's split steps, each counted from 0); times for one B=6
     # bf16 map-update step (splat once, the 16 fused convs by call site;
     # the act step's 20 are in its conv_per_step line); the direct conv
     # timed at the fp32 layer1 conv+res site at B=6, the site it has been
@@ -2903,7 +3057,7 @@ def main() -> int:
         return sum(r["launches"][key]
                    for r in (slice_rows + act_rows + parity_rows + fp32_rows
                              + [train_row] + eval_rows + cli_rows
-                             + video_rows)
+                             + video_rows + rehearsal_rows)
                    if "launches" in r)
 
     def bound_by(ops_ms, bytes_ms):

@@ -9,7 +9,7 @@ has its own raster (exact: the path's pixels, where the distance is 0,
 are the same) and SciPy's exact distance transform (within 2e-5 of
 OpenCV's ``DIST_MASK_PRECISE``, which rounds in float32). The raster is
 also held equal to ``cv2.line`` on 12,000 seeded segments with ends off
-the image.
+the image (thicker lines: ``tests/test_torch_thick_line.py``).
 """
 import dataclasses
 import gzip
@@ -29,7 +29,7 @@ from ws_mgmap_tpu.env import vector_env as jvector_env
 from ws_mgmap_tpu.train.trainer import load_split as jload_split
 from ws_mgmap_tpu_torch.config.default import get_config
 from ws_mgmap_tpu_torch.env import dataset, environments, sim, vector_env
-from ws_mgmap_tpu_torch.env.sensors import PathSensor, line_pixels
+from ws_mgmap_tpu_torch.env.sensors import PathSensor, draw_line, line_pixels
 from ws_mgmap_tpu_torch.train.trainer import load_split
 
 GT_PATH_ATOL = 2e-5
@@ -128,10 +128,17 @@ def test_raster_on_rectangles():
 
 
 def test_path_sensor_only_takes_width_one():
+    """Named for when the port raised on any other width. It now takes
+    ``LINE_WIDTH`` 2 and draws it as ``cv2.line`` does (every width 1-5
+    against JAX's sensor: ``tests/test_torch_thick_line.py``)."""
     cfg = get_config().TASK_CONFIG.TASK.VLN_ORACLE_PATH_SENSOR.clone()
     cfg.LINE_WIDTH = 2
-    with pytest.raises(ValueError, match="LINE_WIDTH"):
-        PathSensor(cfg)
+    assert PathSensor(cfg).line_width == 2
+    want = np.zeros((100, 100), np.uint8)
+    cv2.line(want, (-5, 20), (70, 104), 255, 2)
+    got = np.zeros((100, 100), np.uint8)
+    draw_line(got, (-5, 20), (70, 104), 2)
+    assert np.array_equal(got, want)
 
 
 # ---------------------------------------------------------------------------

@@ -8,8 +8,8 @@ task config enables (`vlnce_task.yaml:25-35`). Each sensor is a callable
 ``(sim, episode, ctx) -> np.ndarray`` registered under its uuid.
 
 The port's copy of ``ws_mgmap_tpu/env/sensors.py``, without OpenCV: the
-path sensor rasterises with ``line_pixels`` (OpenCV's ``cv2.line`` at
-thickness 1, ``LINE_8``, exactly) and takes SciPy's exact Euclidean
+path sensor rasterises with ``draw_line`` (OpenCV's ``cv2.line``,
+``LINE_8``, at any thickness, exactly) and takes SciPy's exact Euclidean
 distance transform where the JAX package calls ``cv2.distanceTransform``.
 """
 from __future__ import annotations
@@ -202,6 +202,173 @@ def line_pixels(p1, p2, w: int, h: int) -> List[tuple]:
     return out
 
 
+XY_SHIFT = 16  # OpenCV's fixed point for thick lines (drawing.cpp)
+XY_ONE = 1 << XY_SHIFT
+
+
+def _tdiv(a: int, b: int) -> int:
+    """C's integer division: the quotient truncated toward zero."""
+    q = abs(a) // abs(b)
+    return q if (a >= 0) == (b >= 0) else -q
+
+
+def _put(img: np.ndarray, x: int, y: int) -> None:
+    if 0 <= x < img.shape[1] and 0 <= y < img.shape[0]:
+        img[y, x] = 255
+
+
+def _line_fixed(img: np.ndarray, p1, p2) -> None:
+    """OpenCV's ``Line2``: a 1-pixel line between fixed-point ends
+    (``XY_SHIFT`` fractional bits), clipped to the image scaled to fixed
+    point, stepping the major axis pixel by pixel."""
+    h, w = img.shape
+    clipped = clip_line(w << XY_SHIFT, h << XY_SHIFT, p1, p2)
+    if clipped is None:
+        return
+    (x1, y1), (x2, y2) = clipped
+    dx, dy = x2 - x1, y2 - y1
+    ax, ay = abs(dx), abs(dy)
+    if ax > ay:
+        if dx < 0:
+            dy = -dy
+            (x1, y1), (x2, y2) = (x2, y2), (x1, y1)
+        x_step, y_step = XY_ONE, _tdiv(dy << XY_SHIFT, ax | 1)
+        ecount = (x2 - x1) >> XY_SHIFT
+    else:
+        if dy < 0:
+            dx = -dx
+            (x1, y1), (x2, y2) = (x2, y2), (x1, y1)
+        x_step, y_step = _tdiv(dx << XY_SHIFT, ay | 1), XY_ONE
+        ecount = (y2 - y1) >> XY_SHIFT
+    half = XY_ONE >> 1
+    x1, y1 = x1 + half, y1 + half
+    _put(img, (x2 + half) >> XY_SHIFT, (y2 + half) >> XY_SHIFT)
+    if ax > ay:
+        x1 >>= XY_SHIFT
+        for _ in range(ecount + 1):
+            _put(img, x1, y1 >> XY_SHIFT)
+            x1, y1 = x1 + 1, y1 + y_step
+    else:
+        y1 >>= XY_SHIFT
+        for _ in range(ecount + 1):
+            _put(img, x1 >> XY_SHIFT, y1)
+            x1, y1 = x1 + x_step, y1 + 1
+
+
+def _fill_convex_fixed(img: np.ndarray, v) -> None:
+    """OpenCV's ``FillConvexPoly`` for ``LINE_8`` over fixed-point
+    vertices: the outline by :func:`_line_fixed`, then one span a row
+    between the left and right edges, each edge stepped by a rounded
+    fixed-point slope."""
+    h, w = img.shape
+    npts = len(v)
+    delta = XY_ONE >> 1
+    p0 = v[-1]
+    for p in v:
+        _line_fixed(img, p0, p)
+        p0 = p
+    ys = [p[1] for p in v]
+    imin = ys.index(min(ys))
+    xmin = (min(p[0] for p in v) + delta) >> XY_SHIFT
+    xmax = (max(p[0] for p in v) + delta) >> XY_SHIFT
+    ymin = (min(ys) + delta) >> XY_SHIFT
+    ymax = (max(ys) + delta) >> XY_SHIFT
+    if npts < 3 or xmax < 0 or ymax < 0 or xmin >= w or ymin >= h:
+        return
+    ymax = min(ymax, h - 1)
+    # per edge: [vertex index, direction, x, dx, last row]
+    edge = [[imin, 1, -XY_ONE, 0, ymin], [imin, npts - 1, -XY_ONE, 0, ymin]]
+    edges = npts
+    y = ymin
+    while True:
+        for e in edge:
+            if y < e[4]:
+                continue
+            idx0, di = e[0], e[1]
+            idx = (idx0 + di) % npts
+            while True:
+                edges -= 1
+                if edges < 0:
+                    break
+                ty = (v[idx][1] + delta) >> XY_SHIFT
+                if ty > y:
+                    xs, xe = v[idx0][0], v[idx][0]
+                    e[4] = ty
+                    e[3] = _tdiv((xe - xs) * 2 + (ty - y), 2 * (ty - y))
+                    e[2] = xs
+                    e[0] = idx
+                    break
+                idx0, idx = idx, (idx + di) % npts
+        if edges < 0:
+            break
+        if y >= 0:
+            left, right = ((1, 0) if edge[0][2] > edge[1][2] else (0, 1))
+            xx1 = (edge[left][2] + delta) >> XY_SHIFT
+            xx2 = (edge[right][2] + delta) >> XY_SHIFT
+            if xx2 >= 0 and xx1 < w:
+                img[y, max(xx1, 0):min(xx2, w - 1) + 1] = 255
+        edge[0][2] += edge[0][3]
+        edge[1][2] += edge[1][3]
+        y += 1
+        if y > ymax:
+            break
+
+
+def _fill_circle(img: np.ndarray, cx: int, cy: int, radius: int) -> None:
+    """OpenCV's filled ``Circle``: the midpoint walk's spans, clipped."""
+    h, w = img.shape
+    err, dx, dy, plus, minus = 0, radius, 0, 1, (radius << 1) - 1
+    while dx >= dy:
+        for yy, half in ((cy - dy, dx), (cy + dy, dx), (cy - dx, dy),
+                         (cy + dx, dy)):
+            if 0 <= yy < h and cx - half < w and cx + half >= 0:
+                img[yy, max(cx - half, 0):min(cx + half, w - 1) + 1] = 255
+        dy += 1
+        err += plus
+        plus += 2
+        if err > 0:
+            err -= minus
+            dx -= 1
+            minus -= 2
+
+
+def draw_line(img: np.ndarray, p1, p2, thickness: int = 1) -> None:
+    """``cv2.line(img, p1, p2, 255, thickness)`` (``LINE_8``, no shift)
+    on a uint8 image, pixel for pixel: width 1 by :func:`line_pixels`; a
+    thicker line as OpenCV 5's ``ThickLine`` draws it. The segment is
+    first clipped to the image grown by ``thickness`` pixels a side; then
+    a convex polygon around it in 16-bit fixed point, its half-width
+    ``thickness / 2`` (+ 0.5 when odd), and a filled round cap of radius
+    ``(thickness + 1) // 2`` at each end."""
+    p1 = (int(p1[0]), int(p1[1]))
+    p2 = (int(p2[0]), int(p2[1]))
+    h, w = img.shape
+    if thickness <= 1:
+        for x, y in line_pixels(p1, p2, w, h):
+            img[y, x] = 255
+        return
+    m = thickness
+    clipped = clip_line(w + 2 * m, h + 2 * m, (p1[0] + m, p1[1] + m),
+                        (p2[0] + m, p2[1] + m))
+    if clipped is None:
+        return
+    (x0, y0), (x1, y1) = [((x - m) << XY_SHIFT, (y - m) << XY_SHIFT)
+                          for x, y in clipped]
+    dx = (x0 - x1) / XY_ONE
+    dy = (y1 - y0) / XY_ONE
+    r = dx * dx + dy * dy
+    t = thickness << (XY_SHIFT - 1)
+    if abs(r) > np.finfo(np.float64).eps:
+        r = (t + (thickness & 1) * XY_ONE * 0.5) / math.sqrt(r)
+        # cvRound: to nearest, ties to even (as Python's round)
+        ddx, ddy = round(dy * r), round(dx * r)
+        _fill_convex_fixed(img, [(x0 + ddx, y0 + ddy), (x0 - ddx, y0 - ddy),
+                                 (x1 - ddx, y1 - ddy), (x1 + ddx, y1 + ddy)])
+    radius = (t + (XY_ONE >> 1)) >> XY_SHIFT
+    for x, y in ((x0, y0), (x1, y1)):
+        _fill_circle(img, x >> XY_SHIFT, y >> XY_SHIFT, radius)
+
+
 # ---------------------------------------------------------------------------
 @register_sensor("vln_oracle_action_sensor")
 def oracle_action_sensor(sim, episode, ctx) -> np.ndarray:
@@ -386,10 +553,6 @@ class PathSensor:
         self.map_size = config.MAP_SIZE
         self.map_resolution = config.MAP_RESOLUTION
         self.line_width = config.LINE_WIDTH
-        if self.line_width != 1:
-            # OpenCV fills thick lines as polygons; only width 1 is ported
-            raise ValueError(f"LINE_WIDTH {self.line_width}: only 1 is "
-                             "supported")
         self.resolution = (COORDINATE_MAX - COORDINATE_MIN) / self.map_resolution
 
     def __call__(self, sim, episode, ctx) -> np.ndarray:
@@ -408,8 +571,7 @@ class PathSensor:
             y = int(a[0] / self.resolution + m // 2)
             px.append((y, x))
         for i in range(len(px) - 1):
-            for x, y in line_pixels(px[i], px[i + 1], m, m):
-                line[y, x] = 255
+            draw_line(line, px[i], px[i + 1], self.line_width)
         if not line.any():
             return np.zeros((m, m), np.float32)
         # exact euclidean distance (pixels) to the rasterized path

@@ -2,10 +2,10 @@
 
 The port's copy of ``ws_mgmap_tpu/env/sim.py``. The reference drives
 habitat-sim (C++) through `habitat.Env` (`SETUP.md:24-44`; SURVEY §2.4).
-This framework talks to a small `SimBackend` protocol instead; the JAX
-package's Habitat adapter (``env/habitat_backend.py``, not ported yet)
-maps it onto habitat-sim, and :class:`FakeSim` provides a fully deterministic
-grid-world (occupancy + semantics + ray-cast RGB-D) so every trainer/env
+This framework talks to a small `SimBackend` protocol instead; the
+Habitat adapter (``env/habitat_backend.py``, the port's copy of the JAX
+package's) maps it onto habitat-sim, and :class:`FakeSim` provides a
+fully deterministic grid-world (occupancy + semantics + ray-cast RGB-D) so every trainer/env
 component is testable and benchmarkable without Matterport3D assets.
 
 Conventions follow habitat: +y up, forward = -z, TURN_LEFT = +15 deg yaw,

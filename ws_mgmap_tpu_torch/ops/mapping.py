@@ -13,7 +13,8 @@ import torch
 
 from ws_mgmap_tpu_torch.ops.pooling import adaptive_max_pool_lastdim
 from ws_mgmap_tpu_torch.ops.projection import project_egocentric, recip
-from ws_mgmap_tpu_torch.ops.resample import rotate_about_center
+from ws_mgmap_tpu_torch.ops.resample import (rotate_about_center,
+                                             translate_norm_fast)
 from ws_mgmap_tpu_torch.utils.device import resolve_device
 
 
@@ -117,6 +118,40 @@ def register_and_retrieve(global_map: torch.Tensor, ego_proj: torch.Tensor,
     crop = _shift2d(fused, -dr, -dc)
     ego_map = rotate_about_center(crop, compass.reshape(b))
     return ego_map, global_map
+
+
+def register_and_retrieve_reference(
+        global_map: torch.Tensor, ego_proj: torch.Tensor, gps: torch.Tensor,
+        compass: torch.Tensor, masks: torch.Tensor, p: MapperParams
+        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The literal warp chain of the reference (`rgb_mapping.py:32-72`):
+    paste the ego projection into the center of a G x G frame, translate
+    it by the GPS grid offset, max-fuse it into the global map, translate
+    back, crop the center E x E and rotate by the compass. The oracle for
+    :func:`register_and_retrieve`; the same arguments, but ``global_map``
+    is left as it was and the new map is returned."""
+    b = ego_proj.shape[0]
+    g, e = p.global_size, p.ego_size
+    half = g // 2
+    global_map = global_map * masks.reshape(b, 1, 1, 1).to(global_map.dtype)
+    grid_x, grid_y = gps_to_grid(gps, p)
+
+    lo = half - e // 2
+    agent_view = ego_proj.new_zeros((b, g, g, ego_proj.shape[-1]))
+    agent_view[:, lo:lo + e, lo:lo + e] = ego_proj
+    # true division on every device, as eager JAX divides: PyTorch's CUDA
+    # kernel divides by a Python scalar as a multiply by its fp32
+    # reciprocal, and then tx * G / 2 misses the whole shift (and blends
+    # in a neighbour) at 284 of the 481 shifts in [-240, 240], not at 8
+    div = torch.tensor(float(half), device=grid_y.device)
+    tx = -(grid_y - half) / div
+    ty = -(grid_x - half) / div
+    translated = translate_norm_fast(agent_view, tx, ty)
+    new_global = torch.maximum(global_map, translated)
+
+    back = translate_norm_fast(new_global, -tx, -ty)
+    crop = back[:, lo:lo + e, lo:lo + e]
+    return rotate_about_center(crop, compass.reshape(b)), new_global
 
 
 def rgb_mapping_step(global_map: torch.Tensor, rgb_proj_feat: torch.Tensor,

@@ -21,6 +21,52 @@ def adaptive_max_pool_lastdim(x: torch.Tensor, out_size: int) -> torch.Tensor:
     return torch.stack(outs, dim=-1)
 
 
+def adaptive_avg_pool_lastdim(x: torch.Tensor, out_size: int
+                              ) -> torch.Tensor:
+    """``nn.AdaptiveAvgPool1d`` over the last dim, with the same bins."""
+    if out_size == 1:
+        return x.mean(dim=-1, keepdim=True)
+    c = x.shape[-1]
+    outs = []
+    for i in range(out_size):
+        start = (i * c) // out_size
+        end = -(-((i + 1) * c) // out_size)
+        outs.append(x[..., start:end].mean(dim=-1))
+    return torch.stack(outs, dim=-1)
+
+
+def upsample_x2_taps(h: int) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Static (i0, i1, w) of align_corners=True bilinear x2 along an axis
+    of ``h``: out[o] = (1 - w[o]) * x[i0[o]] + w[o] * x[i1[o]], the
+    weights computed in fp32 as the JAX package computes them."""
+    oh = 2 * h
+    ys = np.arange(oh, dtype=np.float32) * np.float32((h - 1) / (oh - 1))
+    y0 = np.floor(ys).astype(np.int64)
+    y1 = np.minimum(y0 + 1, h - 1)
+    return y0, y1, (ys - y0).astype(np.float32)
+
+
+def upsample_bilinear_x2_nhwc_blend(x: torch.Tensor) -> torch.Tensor:
+    """The align_corners=True bilinear x2 upsample of an NHWC tensor as a
+    gather blend: two index selects and a 2-tap weighted sum per axis,
+    over :func:`upsample_x2_taps`' static indices, blended in the
+    tensor's dtype."""
+    _, h, w, _ = x.shape
+    i0h, i1h, wh = upsample_x2_taps(h)
+    i0w, i1w, ww = upsample_x2_taps(w)
+
+    def blend(t, dim, i0, i1, wt, shape):
+        wt = torch.from_numpy(wt).to(device=t.device, dtype=t.dtype
+                                     ).reshape(shape)
+        i0 = torch.from_numpy(i0).to(t.device)
+        i1 = torch.from_numpy(i1).to(t.device)
+        return (t.index_select(dim, i0) * (1 - wt)
+                + t.index_select(dim, i1) * wt)
+
+    y = blend(x, 1, i0h, i1h, wh, (1, -1, 1, 1))
+    return blend(y, 2, i0w, i1w, ww, (1, 1, -1, 1))
+
+
 def upsample_bilinear_x2_nchw(x: torch.Tensor) -> torch.Tensor:
     """``nn.Upsample(scale_factor=2, mode='bilinear', align_corners=True)``
     on an NCHW tensor (keeps a channels_last memory format)."""
