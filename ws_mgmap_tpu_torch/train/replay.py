@@ -26,6 +26,7 @@ import numpy as np
 
 from ws_mgmap_tpu_torch.data.trajstore import (TrajStoreReader, pack_record,
                                                unpack_record)
+from ws_mgmap_tpu_torch.utils import profiling
 
 NARROW_DTYPES = {
     "vln_oracle_action_sensor": np.uint8,
@@ -150,10 +151,13 @@ class ReplayLoader:
             chunk = order[i:i + self.batch_size]
             if self.drop_last and len(chunk) < self.batch_size:
                 break
-            eps = [unpack_record(self.reader.get(j)) for j in chunk]
+            with profiling.span("replay.read"):
+                eps = [unpack_record(self.reader.get(j)) for j in chunk]
             eps.sort(key=lambda e: e["prev_actions"].shape[0])
-            yield collate_episodes(eps, self.max_len,
-                                   fixed_len=self.fixed_len)
+            with profiling.span("replay.collate"):
+                batch = collate_episodes(eps, self.max_len,
+                                         fixed_len=self.fixed_len)
+            yield batch
 
     def __iter__(self) -> Iterator[dict[str, Any]]:
         """One epoch; a background thread decodes and collates up to two

@@ -28,6 +28,7 @@ import torch
 from ws_mgmap_tpu_torch.models.policy import BasePolicy, PolicyOutputs
 from ws_mgmap_tpu_torch.ops.mapping import init_global_map
 from ws_mgmap_tpu_torch.parallel.mesh import best_dp
+from ws_mgmap_tpu_torch.utils import profiling
 from ws_mgmap_tpu_torch.utils.device import resolve_device
 
 
@@ -244,11 +245,13 @@ class RolloutEngine:
         cached = self._text_tokens[j]
         if (cached is None or cached.shape != tokens.shape
                 or not torch.equal(cached, tokens)):
-            self._text_cache[j] = self.replicas[j].encode_text(tokens)
+            with profiling.span("engine.encode_text"):
+                self._text_cache[j] = self.replicas[j].encode_text(tokens)
             self._text_tokens[j] = tokens.clone()
         text, text_pad = self._text_cache[j]
         return dict(obs_batch, text_features=text, text_pad=text_pad)
 
+    @profiling.span("engine.act")
     def act(self, obs_batch: dict[str, torch.Tensor], masks
             ) -> PolicyOutputs:
         """One decision step (deterministic: the waypoint is the mode).
@@ -279,6 +282,7 @@ class RolloutEngine:
         self.prog = out.prog.cpu().numpy()
         return out
 
+    @profiling.span("engine.update_map")
     def update_map(self, obs_batch: dict[str, torch.Tensor],
                    masks) -> torch.Tensor:
         """One map-update step; returns the ego map in fp32 and keeps the

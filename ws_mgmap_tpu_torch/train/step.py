@@ -36,6 +36,7 @@ from ws_mgmap_tpu_torch.models.layers import (bn_stats_frozen,
 from ws_mgmap_tpu_torch.models.policy import BasePolicy
 from ws_mgmap_tpu_torch.parallel import mesh
 from ws_mgmap_tpu_torch.train.losses import MonitorConfig, total_loss
+from ws_mgmap_tpu_torch.utils import profiling
 from ws_mgmap_tpu_torch.utils.device import resolve_device
 
 FROZEN_PREFIXES = ("net.rgb_encoder.", "net.depth_encoder.")
@@ -127,6 +128,7 @@ def make_train_step(monitors: MonitorConfig, remat: bool = False,
         raise RuntimeError("distributed=True needs a process group: call "
                            "mesh.init_distributed first")
 
+    @profiling.span("train.update")
     def update(state: TrainState, batch: dict[str, Any]
                ) -> dict[str, torch.Tensor]:
         policy = state.policy.train()
