@@ -11,7 +11,7 @@ synthetic ids, on the ids of a B=6 and a B=24 step
 of the wall spin, and untimed on edge values: NaN, infinities, signed
 zeros; the fused conv's wgmma kernel at every call site at B=6 and B=24,
 the UNet's 16 and the map decoder's 4, and its direct kernel at every
-call site in fp32 at B=6 and B=24 (timed) and B=2, and at a
+call site in fp32 at B=6 and B=24 (timed) and B=1-2, and at a
 ragged-channel shape; with ``--sweep-tiles`` also both kernels with every
 tile; with ``--splat-ablation`` also variants of the splat with a part
 taken out; with ``--direct-vs SRC`` also an earlier ``conv3x3.cu``
@@ -24,10 +24,10 @@ the depth ResNet50, the map encoder / decoder / classifier, the
 instruction biLSTM once per episode, attention, the two GRUs and the
 heads). Production mode (bf16 + rotate-in-splat) runs at B=6 and B=24 on
 a "wall 3 m ahead" drive; the fp32 parity mode runs act and update_map at
-B=2 against the same port on the CPU, with the library convs (fused mode
-"auto") and then with the fused sites through the direct kernel ("on":
-16 launches an update_map, 20 an act); the fp32 steps at B=6 and B=24
-are timed under "auto" and "on" in turns. Last, the teacher-forcing training
+B=2 against the same port on the CPU, with cuDNN's convs (fused mode
+"off") and then with the fused sites through the direct kernel ("auto",
+the default: 16 launches an update_map, 20 an act); the fp32 steps at
+B=6 and B=24 are timed under "off" and "auto" in turns. Last, the teacher-forcing training
 step (``train/step.py``: ``forward_seq`` over 5 episodes x 64 steps, the
 losses, backward, Adam with frozen trunks, train-mode BatchNorm) runs in
 fp32 at full width, launching none of the kernels, timed with remat off
@@ -413,7 +413,7 @@ EVAL_PROCESSES = 5  # the production eval's env workers, its first batch
 # phase 7's batches: its envs pause one by one (checked, the last timed)
 EVAL_B = tuple(range(1, EVAL_PROCESSES + 1))
 CONV_B = PRODUCTION_B + (EVAL_PROCESSES,)  # the timed batches
-FP32_PARITY_B = 2  # phase 4's batch (the direct kernel under fused "on")
+FP32_PARITY_B = 2  # phase 4's batch, "off" against "auto"
 
 
 def conv_launches(kconv) -> dict:
@@ -554,20 +554,19 @@ def check_direct_plan(kconv, build) -> dict:
 
 
 def check_conv(kconv, gen) -> list[dict]:
-    """The wgmma kernel at every call site at both production batches and
-    the production eval's first (its tile, and so its template instance
-    and grid, depends on the batch), untimed at phase 7's other batches;
-    the direct kernel at every call site in fp32 (the fused fp32 path,
-    fused mode "on") at both production batches and untimed at the fp32
-    parity batch, and at a ragged-channel bf16 shape."""
+    """The wgmma kernel (bf16) and the direct kernel (fp32, fused mode
+    "auto" on the card) at every call site at both production batches and
+    the production eval's first (each kernel's tile, and so its grid,
+    depends on the batch), untimed at phase 7's other batches, and the
+    wgmma kernel at a ragged-channel bf16 shape."""
     rows = [conv_case(kconv, *site[:6], torch.bfloat16, b, gen)
             for b in CONV_B for site in CONV_SITES]
     rows += [conv_case(kconv, *site[:6], torch.bfloat16, b, gen, timed=False)
              for b in EVAL_B if b not in CONV_B for site in CONV_SITES]
     rows += [conv_case(kconv, *site[:6], torch.float32, b, gen)
-             for b in PRODUCTION_B for site in CONV_SITES]
-    rows += [conv_case(kconv, *site[:6], torch.float32, FP32_PARITY_B, gen,
-                       timed=False) for site in CONV_SITES]
+             for b in CONV_B for site in CONV_SITES]
+    rows += [conv_case(kconv, *site[:6], torch.float32, b, gen, timed=False)
+             for b in EVAL_B if b not in CONV_B for site in CONV_SITES]
     rows.append(conv_case(kconv, "ragged 96+32->70 bf16", 28, 96, 32, 70,
                           False, torch.bfloat16, 6, gen))
     return rows
@@ -951,10 +950,11 @@ def parity_fp32(policy, ksplat, kconv, mode: str = "auto") -> dict:
     """fp32 at B=2 on the card vs the same port on the CPU, over act,
     update_map, update_map, act: the maps at every step, and at each act
     the waypoint, value, hidden state, semantic logits and attention
-    weights, each within 1e-3 of its range on the CPU. Fused mode "auto"
-    keeps the library convs (the splat only); "on" sends the fused sites
-    through the direct kernel on the card (16 an update_map, 20 an act)
-    and through its twin on the CPU. Launches are checked step by step."""
+    weights, each within 1e-3 of its range on the CPU. Fused mode "off"
+    keeps cuDNN's convs (the splat only); "auto" (and "on") sends the
+    fused sites through the direct kernel on the card (16 an update_map,
+    20 an act), while the CPU engine keeps the library conv under "auto"
+    (its twin under "on"). Launches are checked step by step."""
     from ws_mgmap_tpu_torch.tools.synthetic import wall_obs
     from ws_mgmap_tpu_torch.train.rollout import RolloutEngine
 
@@ -962,7 +962,7 @@ def parity_fp32(policy, ksplat, kconv, mode: str = "auto") -> dict:
     gpu = RolloutEngine(policy, b)
     cpu = RolloutEngine(policy, b, device="cpu")
     gen = np.random.RandomState(7)
-    direct = {k: CONV_PER_STEP[k] if mode == "on" else 0
+    direct = {k: CONV_PER_STEP[k] if mode != "off" else 0
               for k in STEP_KINDS}
     reset_launches(ksplat, kconv)
     worst: dict[str, float] = {}
@@ -1016,13 +1016,13 @@ def parity_fp32(policy, ksplat, kconv, mode: str = "auto") -> dict:
 
 def drive_fp32_steps(policy, ksplat, kconv) -> list[dict]:
     """The fp32 rollout steps (``MODEL.ROLLOUT_BF16`` False, the default)
-    at B=6 and B=24, fused mode "auto" (cuDNN convs, BN unfused) against
-    "on" (the fused sites through the direct kernel), paired in this call:
-    a map-update step and an act step, each timed in turns auto, on, on,
-    auto, each turn the bf16 drives' rounds (median of 5 rounds of 8 steps
-    on the host clock after 2 warm steps). Every step's launches are
-    checked: 1 splat, and under "on" 16 direct an update_map and 20 an
-    act, none under "auto"."""
+    at B=6 and B=24, fused mode "off" (cuDNN convs, BN unfused) against
+    "auto" (the default: the fused sites through the direct kernel),
+    paired in this call: a map-update step and an act step, each timed in
+    turns off, auto, auto, off, each turn the bf16 drives' rounds (median
+    of 5 rounds of 8 steps on the host clock after 2 warm steps). Every
+    step's launches are checked: 1 splat, and under "auto" 16 direct an
+    update_map and 20 an act, none under "off"."""
     from ws_mgmap_tpu_torch.tools.synthetic import (instruction_tokens,
                                                     wall_obs)
     from ws_mgmap_tpu_torch.train.rollout import RolloutEngine
@@ -1039,12 +1039,12 @@ def drive_fp32_steps(policy, ksplat, kconv) -> list[dict]:
         eng.act(obs, np.zeros((b, 1)))  # a fresh episode, text cached
         reset_launches(ksplat, kconv)
         row = dict(phase="fp32_steps", B=b, dtype="float32")
-        counted = {"act": {"auto": 0, "on": 0},
-                   "update_map": {"auto": 0, "on": 0}}
+        counted = {"act": {"off": 0, "auto": 0},
+                   "update_map": {"off": 0, "auto": 0}}
         warm, rounds, per_round = 2, 5, 8
         for kind, step in steps.items():
-            ms = {"auto": [], "on": []}
-            for mode in ("auto", "on", "on", "auto"):
+            ms = {"off": [], "auto": []}
+            for mode in ("off", "auto", "auto", "off"):
                 with fused_mode(kconv, mode):
                     before = launch_counts(ksplat, kconv)
                     step()
@@ -1052,7 +1052,7 @@ def drive_fp32_steps(policy, ksplat, kconv) -> list[dict]:
                            for k, v in launch_counts(ksplat, kconv).items()}
                     want = {"splat_max": 1, "conv_wgmma": 0,
                             "conv_direct": (CONV_PER_STEP[kind]
-                                            if mode == "on" else 0)}
+                                            if mode == "auto" else 0)}
                     if ran != want:
                         raise AssertionError(
                             f"fp32 B={b} {kind} {mode}: launches {ran}, "
@@ -1065,13 +1065,13 @@ def drive_fp32_steps(policy, ksplat, kconv) -> list[dict]:
                 row[f"{kind}_{mode}_ms"] = [t[0] for t in turns]
                 row[f"{kind}_{mode}_ms_range"] = [
                     min(t[1][0] for t in turns), max(t[1][1] for t in turns)]
-            row[f"{kind}_on_over_auto"] = (float(np.mean(
-                row[f"{kind}_on_ms"])) / float(np.mean(
-                    row[f"{kind}_auto_ms"])))
+            row[f"{kind}_auto_over_off"] = (float(np.mean(
+                row[f"{kind}_auto_ms"])) / float(np.mean(
+                    row[f"{kind}_off_ms"])))
         launches = launch_counts(ksplat, kconv)
         steps_run = sum(n for c in counted.values() for n in c.values())
         expect = {"splat_max": steps_run, "conv_wgmma": 0,
-                  "conv_direct": sum(CONV_PER_STEP[k] * c["on"]
+                  "conv_direct": sum(CONV_PER_STEP[k] * c["auto"]
                                      for k, c in counted.items())}
         if launches != expect:
             raise AssertionError(f"fp32 B={b}: launches {launches}, "
@@ -1890,7 +1890,8 @@ class Lockstep:
 def eval_lockstep(ksplat, kconv) -> dict:
     """fp32 (TF32 off) at B=2, one short episode per env: the card
     engine and a CPU engine with the same weights in lockstep; the splat
-    on every step, no wgmma conv (fp32 keeps the library conv)."""
+    on every step, the direct conv at the fused sites (fused mode "auto":
+    20 an act, 16 an update_map), no wgmma conv."""
     import tempfile
 
     from ws_mgmap_tpu_torch.tools.synthetic import random_policy
@@ -1905,8 +1906,10 @@ def eval_lockstep(ksplat, kconv) -> dict:
         agg, envs, wall = run_eval(cfg, lock, tmp)
         launches = launch_counts(ksplat, kconv)
         row = check_eval(cfg, agg, tmp, envs, 2, "lockstep eval")
+    direct = (CONV_PER_STEP["act"] * lock.decisions
+              + CONV_PER_STEP["update_map"] * (lock.steps - lock.decisions))
     if (launches["splat_max"] != lock.steps or launches["conv_wgmma"]
-            or launches["conv_direct"] or lock.decisions == 0):
+            or launches["conv_direct"] != direct or lock.decisions == 0):
         raise AssertionError(f"lockstep eval: launches {launches} over "
                              f"{lock.steps} steps, {lock.decisions} "
                              "decisions")
@@ -2965,7 +2968,7 @@ def main() -> int:
         for step in STEP_KINDS:
             conv_t[b, step] = conv_per_step(conv_rows, b, step)
             emit(conv_t[b, step])
-    for b in PRODUCTION_B:  # the fp32 fused path's convs (fused mode "on")
+    for b in CONV_B:  # the fp32 fused path's convs (fused mode "auto")
         for step in STEP_KINDS:
             emit(conv_per_step(conv_rows, b, step, "float32"))
     if args.sweep_tiles:
@@ -2985,14 +2988,14 @@ def main() -> int:
     for r in act_rows:
         emit(r)
 
-    # phase 4: fp32 parity, card vs CPU: library convs ("auto"), then the
-    # fused fp32 path through the direct kernel ("on")
+    # phase 4: fp32 parity, card vs CPU: cuDNN's convs ("off"), then the
+    # fused fp32 path through the direct kernel ("auto", the default)
     parity_policy = random_policy(1, rotate_in_splat=False)
     parity_rows = [parity_fp32(parity_policy, ksplat, kconv, mode)
-                   for mode in ("auto", "on")]
+                   for mode in ("off", "auto")]
     for r in parity_rows:
         emit(r)
-    # phase 4b: the fp32 rollout steps, "auto" against "on", timed
+    # phase 4b: the fp32 rollout steps, "off" against "auto", timed
     fp32_rows = drive_fp32_steps(parity_policy, ksplat, kconv)
     for r in fp32_rows:
         emit(r)
@@ -3030,17 +3033,19 @@ def main() -> int:
     # each batch and dtype phases 7-10 ran the kernels at was held in
     # phase 2
     splat_held = {(r["B"], r["dtype"]) for r in splat_rows}
-    wgmma_held = {r["B"] for r in conv_rows if r["variant"] == "wgmma"}
+    conv_held = {(r["B"], r["dtype"]) for r in conv_rows
+                 if r["variant"] == ("wgmma" if r["dtype"] == "bfloat16"
+                                     else "direct")}
     for row in eval_rows + cli_rows + video_rows + rehearsal_rows:
         for b in row.get("batch_sizes", ()):
             if (b, row["dtype"]) not in splat_held or (
-                    row["dtype"] == "bfloat16" and b not in wgmma_held):
+                    b, row["dtype"]) not in conv_held:
                 raise AssertionError(f"{row['phase']}: the kernels ran at "
                                      f"B={b} {row['dtype']}, which phase 2 "
                                      "did not check")
 
     # the kernels line: launches from the main-path runs of phases 3, 3b,
-    # 4 and 4b (the fp32 path under "on"), 5, 7, 8, 9 and 10 (the training
+    # 4 and 4b (the fp32 path under "auto"), 5, 7, 8, 9 and 10 (the training
     # step launches none; phase 7's and 9's evaluations, phase 8's and
     # 10's runs and phase 9's split steps, each counted from 0); times for one B=6
     # bf16 map-update step (splat once, the 16 fused convs by call site;

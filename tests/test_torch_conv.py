@@ -128,12 +128,14 @@ def test_gate_agrees_with_jax(shape, kernel, stride):
             == jconv.fused_conv_eligible(shape, kernel, stride))
 
 
-def test_auto_mode_fuses_only_bf16_on_the_card():
+def test_auto_mode_fuses_bf16_and_fp32_on_the_card_only():
     cpu, gpu = torch.device("cpu"), torch.device("cuda")
     shape = (1, 224, 224, 64)
     assert kconv.fused_conv_active(shape, torch.bfloat16, gpu, 3, 1)
-    assert not kconv.fused_conv_active(shape, torch.float32, gpu, 3, 1)
+    assert kconv.fused_conv_active(shape, torch.float32, gpu, 3, 1)
+    assert not kconv.fused_conv_active(shape, torch.float16, gpu, 3, 1)
     assert not kconv.fused_conv_active(shape, torch.bfloat16, cpu, 3, 1)
+    assert not kconv.fused_conv_active(shape, torch.float32, cpu, 3, 1)
     kconv.set_fused_conv_mode("off")
     try:
         assert not kconv.fused_conv_active(shape, torch.bfloat16, gpu, 3, 1)

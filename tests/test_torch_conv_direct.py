@@ -91,8 +91,12 @@ def test_direct_tile_splits_only_where_the_grid_is_short(b, site, split):
 
 
 @pytest.mark.parametrize("site", CONV_SITES, ids=lambda s: s[0])
-@pytest.mark.parametrize("mode,fused", [("on", True), ("auto", False)])
-def test_fp32_gate_on_fuses_every_site_through_direct(site, mode, fused):
+@pytest.mark.parametrize("mode,fused_on", [("on", ("cuda", "cpu")),
+                                           ("auto", ("cuda",)),
+                                           ("off", ())])
+def test_fp32_gate_on_fuses_every_site_through_direct(site, mode, fused_on):
+    # fp32 fuses on the card under "on" and "auto", on the CPU under "on"
+    # alone (its twin), and nowhere under "off" (the library conv)
     _, h, c1, c2, co, *_ = site
     shape = (2, h, h, c1 + c2)
     kconv.set_fused_conv_mode(mode)
@@ -100,10 +104,11 @@ def test_fp32_gate_on_fuses_every_site_through_direct(site, mode, fused):
         for dev in ("cuda", "cpu"):
             got = kconv.fused_conv_active(shape, torch.float32,
                                           torch.device(dev), 3, 1)
-            assert got == fused, dev
-        # "auto" still fuses bf16 on the card, as in the JAX package
+            assert got == (dev in fused_on), dev
+        # bf16 fuses on the card in every mode but "off"
         assert kconv.fused_conv_active(shape, torch.bfloat16,
-                                       torch.device("cuda"), 3, 1)
+                                       torch.device("cuda"), 3,
+                                       1) == (mode != "off")
     finally:
         kconv.set_fused_conv_mode("auto")
     assert kconv.conv_variant(torch.float32, c1, c2, co) == "direct"

@@ -200,9 +200,10 @@ def fused_conv_bn(x: torch.Tensor, conv: nn.Conv2d, bn: nn.BatchNorm2d,
 
 def fusable(x_shape_nchw, dtype: torch.dtype, device: torch.device,
             conv: nn.Conv2d, training: bool) -> bool:
-    """The JAX gate for a conv of this module: eval only (train-mode BN
-    normalizes with batch statistics and cannot be folded), padding 1,
-    and :func:`fused_conv_active` on the NHWC shape."""
+    """The fused-conv gate for a conv of this module: eval only
+    (train-mode BN normalizes with batch statistics and cannot be
+    folded), padding 1, and :func:`fused_conv_active` on the NHWC shape
+    (the JAX gate's sites; on the card fp32 as well as bf16)."""
     b, c, h, w = x_shape_nchw
     return (not training and conv.padding == (1, 1)
             and kconv.fused_conv_active((b, h, w, c), dtype, device,

@@ -20,6 +20,14 @@ On the card two hand-written kernels compute it, chosen by shape
 
 A wrapper runs the twin only for a CPU tensor; for a CUDA tensor it
 launches its kernel or raises.
+
+Under fused mode "auto" (the default) every eligible site of a bf16 or
+fp32 tensor on the card takes its kernel: bf16 the wgmma one, fp32 the
+direct one. Here the gate parts from the JAX package's, which fuses bf16
+alone: there the alternative for fp32 was XLA's convolution, here it is
+cuDNN, whose heuristics pick FFT convolutions for the UNet's fp32 sites
+at a rollout's batch (about 11x the direct kernel's device time a step at
+B=6). On the CPU "auto" fuses nothing.
 """
 from __future__ import annotations
 
@@ -394,13 +402,15 @@ def fused_conv_eligible(x_shape, kernel: int, stride: int,
             and any(h % bh == 0 for bh in (16, 14, 8, 7, 4)))
 
 
-_MODE = "auto"  # "auto": bf16 CUDA tensors only | "on" | "off"
+_MODE = "auto"  # "auto": bf16 and fp32 CUDA tensors | "on" | "off"
 
 
 def set_fused_conv_mode(mode: str) -> None:
-    """"auto" (default) fuses only bf16 tensors on the card -- the fp32
-    parity path keeps the library conv, as in the JAX package; "on" and
-    "off" force it (on a CPU tensor "on" runs the plain twin)."""
+    """"auto" (default) fuses bf16 and fp32 tensors on the card -- fp32
+    through the direct kernel, not cuDNN's convolutions as in the JAX
+    package's "auto" (see the module docstring) -- and nothing on the CPU;
+    "on" and "off" force it (on a CPU tensor "on" runs the plain twin;
+    "off" leaves every site to the library conv, cuDNN on the card)."""
     global _MODE
     if mode not in ("auto", "on", "off"):
         raise ValueError(f"fused conv mode must be auto/on/off, got {mode!r}")
@@ -414,4 +424,5 @@ def fused_conv_active(x_shape, dtype: torch.dtype, device: torch.device,
         return False
     if _MODE == "on":
         return True
-    return device.type == "cuda" and dtype == torch.bfloat16
+    return device.type == "cuda" and dtype in (torch.bfloat16,
+                                               torch.float32)

@@ -43,9 +43,12 @@ class RolloutEngine:
     ``torch.bfloat16`` = the reduced-precision rollout mode. Every floating
     weight and buffer, BN running statistics included, is cast before BN
     is folded into the fused convs, and the hidden state and global map
-    are kept in that dtype. On the card, fp32 parity also needs
-    ``torch.backends.cudnn.allow_tf32 = False``: by default PyTorch lets
-    cuDNN run fp32 convolutions in TF32.
+    are kept in that dtype. On the card fused mode "auto" sends the
+    fused conv sites of both dtypes (``fused_conv_active`` in
+    ``ops/kernels/conv.py``) to the port's kernels, fp32 to the direct
+    conv in fp32 FMA; fp32 parity also needs
+    ``torch.backends.cudnn.allow_tf32 = False`` for the convs the gate
+    leaves to cuDNN, which PyTorch lets run in TF32 by default.
 
     The engine keeps its own copy of ``policy`` on ``device`` (the card
     unless ``device="cpu"``), in eval mode. ``devices`` (2 or more, in
