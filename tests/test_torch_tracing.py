@@ -134,7 +134,9 @@ def store(tmp_path_factory):
 
 def test_replay_loader_spans(store):
     """Read and collate on the producer's thread, once a batch each, the
-    read of a batch before its collation."""
+    read of a batch before its collation; a fetch a record and a fill an
+    episode on the loader's workers, each inside its batch's read or
+    collate."""
     loader = replay.ReplayLoader(store, batch_size=2, max_len=8, seed=1)
     profiling.enable()
     batches = list(loader)
@@ -143,15 +145,24 @@ def test_replay_loader_spans(store):
     by = {}
     for name, tid, _, _ in spans:
         by.setdefault(name, []).append(tid)
-    assert set(by) == {"replay.read", "replay.collate"}
+    assert set(by) == {"replay.read", "replay.collate", "replay.fetch",
+                       "replay.fill"}
     assert len(by["replay.read"]) == len(by["replay.collate"]) == 3
+    assert len(by["replay.fetch"]) == len(by["replay.fill"]) == 3 * 2
     producer = set(by["replay.read"]) | set(by["replay.collate"])
     assert len(producer) == 1
-    assert threading.get_native_id() not in producer
+    me = threading.get_native_id()
+    assert me not in producer
+    assert me not in set(by["replay.fetch"]) | set(by["replay.fill"])
     reads = [s for s in spans if s[0] == "replay.read"]
     collates = [s for s in spans if s[0] == "replay.collate"]
     for (_, _, _, read_end), (_, _, collate_start, _) in zip(reads, collates):
         assert read_end <= collate_start
+    for outer, inner in ((reads, "replay.fetch"), (collates, "replay.fill")):
+        for _, _, start, end in outer:
+            held = [s for s in spans if s[0] == inner
+                    and start <= s[2] <= s[3] <= end]
+            assert len(held) == 2, (inner, held)
 
 
 @pytest.fixture(scope="module")

@@ -121,13 +121,15 @@ def pack_record(tree: dict[str, Any]) -> bytes:
     return b"".join(parts)
 
 
-def unpack_record(buf: bytes) -> dict[str, Any]:
-    """The nested dict of :func:`pack_record`; the arrays are read-only
-    views of ``buf``."""
-    if buf[:4] != _MAGIC:
+def unpack_record(buf) -> dict[str, Any]:
+    """The nested dict of :func:`pack_record`; the arrays are views of
+    ``buf`` (any buffer: ``bytes``, or the writable ``uint8`` array that
+    :meth:`TrajStoreReader.get` inflates into), read-only where it is."""
+    view = memoryview(buf).cast("B")
+    if view[:4] != _MAGIC:
         raise ValueError("corrupt trajstore record")
-    (hlen,) = struct.unpack("<I", buf[4:8])
-    meta = json.loads(buf[8:8 + hlen].decode())
+    (hlen,) = struct.unpack_from("<I", view, 4)
+    meta = json.loads(bytes(view[8:8 + hlen]))
     out: dict[str, Any] = {}
     off = 8 + hlen
     for m in meta:
@@ -229,16 +231,21 @@ class TrajStoreReader:
     def __len__(self) -> int:
         return self._count
 
-    def get(self, i: int) -> bytes:
+    def get(self, i: int) -> np.ndarray | bytes:
+        """Record ``i``, inflated: a writable ``uint8`` array (native) or
+        ``bytes`` (python). Either backend releases the interpreter lock
+        while it inflates, and the native call opens the shard itself,
+        so many threads may read at once."""
         if self._lib is not None:
             raw_size = int(self._lib.ts_reader_raw_size(self._h, i))
             if raw_size < 0:
                 raise IndexError(f"trajstore: no record {i}")
-            out = ctypes.create_string_buffer(raw_size)
-            got = self._lib.ts_reader_get(self._h, i, out, raw_size)
+            out = np.empty(raw_size, np.uint8)
+            got = self._lib.ts_reader_get(
+                self._h, i, out.ctypes.data_as(ctypes.c_char_p), raw_size)
             if got != raw_size:
                 raise OSError(f"trajstore: reading record {i} failed ({got})")
-            return out.raw
+            return out
         binp, off, csz, rsz = self._entries[i]
         with open(binp, "rb") as f:
             f.seek(off)

@@ -7,7 +7,9 @@ port's trajectory store (``data/trajstore.py``):
     (:func:`episode_to_record`);
   * reader side (:class:`ReplayLoader`): contiguous rank index ranges, a
     block shuffle seeded per epoch, length-sorted batches, a background
-    thread that decodes and collates ahead of the consumer;
+    thread that builds batches ahead of the consumer, fanning each
+    batch's record reads and episode rows out over a pool of worker
+    threads (:func:`loader_threads`);
   * collate (:func:`collate_episodes`): episode-major [N, T, ...] padded
     with 1.0, zero weights on padding, not-done masks 0 at t=0.
 On the same store, seed, rank and world size the loader yields the JAX
@@ -20,9 +22,11 @@ import os
 import queue
 import random
 import threading
+from concurrent.futures import Executor, ThreadPoolExecutor
 from typing import Any, Iterator, Sequence
 
 import numpy as np
+import torch.distributed as dist
 
 from ws_mgmap_tpu_torch.data.trajstore import (TrajStoreReader, pack_record,
                                                unpack_record)
@@ -89,6 +93,18 @@ def _block_shuffle(items: list[int], block_size: int,
     return [x for b in blocks for x in b]
 
 
+def loader_threads(batch_size: int) -> int:
+    """The loader's worker threads: one an episode of a batch, at most
+    this process's share of the cores it may run on (its CPU affinity,
+    split among the ranks torchrun started on this host when a process
+    group is up)."""
+    ranks = 1
+    if dist.is_available() and dist.is_initialized():
+        ranks = int(os.environ.get("LOCAL_WORLD_SIZE", 1))
+    cores = len(os.sched_getaffinity(0))
+    return max(1, min(batch_size, cores // ranks))
+
+
 class ReplayLoader:
     """Iterates collated batches over a trajectory store directory.
 
@@ -98,6 +114,10 @@ class ReplayLoader:
     of ``batch_size`` episodes, sorted by length within the batch. Every
     rank must hand the update batches of one shape when world_size > 1:
     ``fixed_len`` pads each to ``max_len`` steps.
+
+    A batch's records are read and inflated, and its episodes' rows
+    filled, on a pool of :func:`loader_threads` worker threads, created
+    on the first iteration; the batches are the same as one thread's.
     """
 
     def __init__(
@@ -120,6 +140,7 @@ class ReplayLoader:
         self.seed = seed
         self.drop_last = drop_last
         self._epoch = 0
+        self._pool: Executor | None = None
 
     def __len__(self) -> int:
         per = len(self.reader) // self.world_size
@@ -139,7 +160,12 @@ class ReplayLoader:
             except OSError:
                 pass
 
-    def _batches(self) -> Iterator[dict[str, Any]]:
+    def _fetch(self, i: int) -> dict[str, Any]:
+        """Record ``i``, read, inflated and unpacked (a worker's task)."""
+        with profiling.span("replay.fetch"):
+            return unpack_record(self.reader.get(i))
+
+    def _batches(self, pool: Executor) -> Iterator[dict[str, Any]]:
         rng = random.Random(self.seed + self._epoch)
         self._epoch += 1
         self._drop_page_cache()
@@ -152,40 +178,64 @@ class ReplayLoader:
             if self.drop_last and len(chunk) < self.batch_size:
                 break
             with profiling.span("replay.read"):
-                eps = [unpack_record(self.reader.get(j)) for j in chunk]
+                eps = list(pool.map(self._fetch, chunk))
             eps.sort(key=lambda e: e["prev_actions"].shape[0])
             with profiling.span("replay.collate"):
                 batch = collate_episodes(eps, self.max_len,
-                                         fixed_len=self.fixed_len)
+                                         fixed_len=self.fixed_len, pool=pool)
             yield batch
 
     def __iter__(self) -> Iterator[dict[str, Any]]:
-        """One epoch; a background thread decodes and collates up to two
-        batches ahead of the consumer."""
+        """One epoch; a background thread builds up to two batches ahead
+        of the consumer. An error in building a batch is raised here, in
+        the consumer, after the batches before it."""
+        if self._pool is None:
+            self._pool = ThreadPoolExecutor(loader_threads(self.batch_size),
+                                            thread_name_prefix="replay")
+        pool = self._pool
         q: queue.Queue = queue.Queue(maxsize=2)
         sentinel = object()
+        stop = threading.Event()
 
         def producer():
             try:
-                for b in self._batches():
+                for b in self._batches(pool):
                     q.put(b)
+                    if stop.is_set():
+                        break
+            except Exception as e:  # any error: the consumer raises it
+                q.put(e)
             finally:
                 q.put(sentinel)
 
-        t = threading.Thread(target=producer, daemon=True)
+        t = threading.Thread(target=producer, name="replay-producer",
+                             daemon=True)
         t.start()
-        while True:
-            item = q.get()
-            if item is sentinel:
-                break
-            yield item
+        try:
+            while True:
+                item = q.get()
+                if item is sentinel:
+                    break
+                if isinstance(item, Exception):
+                    raise item
+                yield item
+        finally:
+            # a consumer that leaves early: the producer puts at most two
+            # more items into the emptied queue and ends
+            stop.set()
+            while True:
+                try:
+                    q.get_nowait()
+                except queue.Empty:
+                    break
         t.join()
 
 
 def collate_episodes(episodes: Sequence[dict[str, Any]],
                      max_len: int = 200,
                      t_bucket: int = 16,
-                     fixed_len: bool = False) -> dict[str, Any]:
+                     fixed_len: bool = False,
+                     pool: Executor | None = None) -> dict[str, Any]:
     """Pad and stack episodes to [N, T, ...].
 
     Each episode is {"obs": {key: [len, ...]}, "prev_actions": [len, 2],
@@ -195,7 +245,11 @@ def collate_episodes(episodes: Sequence[dict[str, Any]],
     does (padded frames carry instructions of token 1 at every position),
     and float16 ones come back as float32. Returns {"obs": {...},
     "prev_actions": [N, T, 2], "weights": [N, T] (0 on padding),
-    "not_done_masks": [N, T] (0 at t=0)}.
+    "not_done_masks": [N, T] (0 at t=0)}, every array writable.
+
+    Each output is allocated once; each episode's rows are written in
+    one pass, on ``pool``'s threads when one is given (numpy's copies
+    release the interpreter lock), else in turn on this one.
     """
     n = len(episodes)
     if fixed_len:
@@ -205,24 +259,26 @@ def collate_episodes(episodes: Sequence[dict[str, Any]],
         if t_bucket > 1:
             t_max = min(-(-t_max // t_bucket) * t_bucket, max_len)
 
-    def pad_stack(key_fn, fill):
-        rows = []
-        for e in episodes:
-            arr = np.asarray(key_fn(e))[:t_max]
-            if arr.shape[0] < t_max:
-                pad_shape = (t_max - arr.shape[0],) + arr.shape[1:]
-                arr = np.concatenate(
-                    [arr, np.full(pad_shape, fill, arr.dtype)], axis=0)
-            rows.append(arr)
-        return np.stack(rows)
+    def empty(leaves, widen: bool) -> np.ndarray:
+        dtype = np.result_type(*(leaf.dtype for leaf in leaves))
+        if widen and dtype == np.float16:
+            dtype = np.dtype(np.float32)
+        return np.empty((n, t_max) + leaves[0].shape[1:], dtype)
 
-    obs = {}
-    for k in episodes[0]["obs"]:
-        stacked = pad_stack(lambda e, k=k: e["obs"][k], 1.0)
-        if stacked.dtype == np.float16:
-            stacked = stacked.astype(np.float32)
-        obs[k] = stacked
-    prev_actions = pad_stack(lambda e: e["prev_actions"], 0.0)
+    leaves = {k: [np.asarray(e["obs"][k]) for e in episodes]
+              for k in episodes[0]["obs"]}
+    obs = {k: empty(v, True) for k, v in leaves.items()}
+    prev = [np.asarray(e["prev_actions"]) for e in episodes]
+    prev_actions = empty(prev, False)
+
+    def fill(i: int) -> None:
+        with profiling.span("replay.fill"):
+            for k, out in obs.items():
+                _fill_row(out[i], leaves[k][i], 1.0)
+            _fill_row(prev_actions[i], prev[i], 0.0)
+
+    # list() reads every row's result: a worker's error is raised here
+    list(pool.map(fill, range(n)) if pool is not None else map(fill, range(n)))
     weights = np.zeros((n, t_max), np.float32)
     for i, e in enumerate(episodes):
         weights[i, :min(e["prev_actions"].shape[0], t_max)] = 1.0
@@ -234,3 +290,14 @@ def collate_episodes(episodes: Sequence[dict[str, Any]],
         "weights": weights,
         "not_done_masks": masks,
     }
+
+
+def _fill_row(row: np.ndarray, steps: np.ndarray, pad: float) -> None:
+    """``row`` [T, ...] <- the first ``min(len, T)`` of ``steps``, cast to
+    ``row``'s dtype, then ``pad`` over the rest."""
+    if steps.shape[1:] != row.shape[1:]:
+        raise ValueError(f"episode steps of shape {steps.shape[1:]} in a "
+                         f"batch of {row.shape[1:]}")
+    k = min(steps.shape[0], row.shape[0])
+    row[:k] = steps[:k]
+    row[k:] = pad
