@@ -376,3 +376,40 @@ def test_inference_covers_every_episode_once(tmp_path):
         assert 25 <= len(traj) <= 30, (ep_id, len(traj))
         for stepinfo in traj[:2]:
             assert "position" in stepinfo and "stop" in stepinfo, stepinfo
+
+
+def test_inference_equals_jax(tmp_path, monkeypatch):
+    """The port's inference and the JAX package's, on one port checkpoint
+    and the cut config above (2 envs in process, 3 episodes of at most 30
+    steps: the batch falls from 2 to 1), record the same episodes, with
+    trajectories of the same lengths, stopping at the same steps, and
+    positions within 1e-4. The JAX trainer's template variables are drawn
+    in numpy (``jax_template``): the checkpoint replaces every one."""
+    opts = ["TASK_CONFIG.ENVIRONMENT.MAX_EPISODE_STEPS", "30",
+            "TASK_CONFIG.DATASET.FAKE_EPISODES", "3",
+            "INFERENCE.SPLIT", "val_seen", "EVAL.EPISODE_COUNT", "100"]
+    cfg, jcfg = tiny_configs(str(tmp_path), opts)
+    ckpt = str(tmp_path / "ckpt.0.pth")
+    trainer = DaggerTrainer(cfg, env_workers=False, device="cpu")
+    ckpt_lib.save_checkpoint(ckpt, trainer.init_policy(seed=3), cfg)
+    monkeypatch.setattr(JTrainer, "init_variables",
+                        lambda self: jax_template(jcfg))
+    paths = []
+    for c, make in ((cfg, lambda c: DaggerTrainer(c, env_workers=False,
+                                                  device="cpu")),
+                    (jcfg, lambda c: JTrainer(c, env_workers=False))):
+        c = c.clone()
+        c.defrost()
+        c.INFERENCE.CKPT_PATH = ckpt
+        c.INFERENCE.PREDICTIONS_FILE = str(tmp_path / f"pred{len(paths)}.json")
+        c.freeze()
+        paths.append(make(c).inference())
+    got, want = (json.load(open(p)) for p in paths)
+    assert sorted(got) == sorted(want) and len(got) == 3
+    for ep_id, traj in want.items():
+        assert len(got[ep_id]) == len(traj), ep_id
+        assert ([s["stop"] for s in got[ep_id]]
+                == [s["stop"] for s in traj]), ep_id
+        np.testing.assert_allclose(
+            [s["position"] for s in got[ep_id]],
+            [s["position"] for s in traj], atol=1e-4, err_msg=ep_id)

@@ -20,93 +20,51 @@ import tempfile
 import numpy as np
 
 from ws_mgmap_tpu_torch.tools import learning_check as lc
+from ws_mgmap_tpu_torch.train.evaluator import EvalObserver, rollout
+
+
+class _Errors(EvalObserver):
+    """Each decision's waypoint and progress errors against the oracle
+    sensors of the observations it was made on, and the first row's
+    decisions before step 40."""
+
+    def __init__(self):
+        self.wp_err, self.prog_err, self.recs, self.cos_sims = [], [], [], []
+
+    def decided(self, out, observations, count_step):
+        pred_wp = np.tanh(out.action.cpu().numpy())
+        oracle_wp = np.stack([np.asarray(o["waypoint"], np.float32)[:2]
+                              for o in observations])
+        oracle_prog = np.asarray(
+            [float(np.asarray(o["progress"]).reshape(-1)[0])
+             for o in observations])
+        pred_prog = out.prog.cpu().numpy()[:, 0]
+        for i in range(len(observations)):
+            self.wp_err.append(float(np.linalg.norm(pred_wp[i]
+                                                    - oracle_wp[i])))
+            no = np.linalg.norm(oracle_wp[i])
+            npr = np.linalg.norm(pred_wp[i])
+            if no > 1e-3 and npr > 1e-3:
+                self.cos_sims.append(float(
+                    np.dot(pred_wp[i], oracle_wp[i]) / (no * npr)))
+            self.prog_err.append(float(pred_prog[i] - oracle_prog[i]))
+            if count_step < 40 and i == 0:
+                self.recs.append({
+                    "step": count_step,
+                    "pred_wp": [round(float(x), 3) for x in pred_wp[i]],
+                    "oracle_wp": [round(float(x), 3) for x in oracle_wp[i]],
+                    "pred_prog": round(float(pred_prog[i]), 3),
+                    "oracle_prog": round(float(oracle_prog[i]), 3)})
 
 
 def probe(cfg, engine, envs, episodes):
-    """Roll ``episodes`` episodes out with ``engine`` under the eval
-    protocol (24-step look-around, a decision every ``step_num`` steps);
-    returns the per-decision errors, the first env's early decisions and
-    the episodes' final measures."""
-    n0 = envs.num_envs
-    engine.reset_state(n0)
-    observations = envs.reset()
-    batch = engine.batch_obs(observations)
-    masks = np.zeros((n0, 1), np.float32)
-    stats = {}
-    count_step = 0
-    actions = np.zeros((envs.num_envs, 2), np.float32)
-    wp_err, prog_err, recs, cos_sims = [], [], [], []
-
-    while envs.num_envs > 0 and len(stats) < episodes:
-        current = envs.current_episodes()
-        if count_step % cfg.step_num == 0 and count_step >= 24:
-            out = engine.act(batch, masks)
-            actions = out.action.cpu().numpy()
-            pred_wp = np.tanh(actions)
-            oracle_wp = np.stack([np.asarray(o["waypoint"], np.float32)[:2]
-                                  for o in observations])
-            oracle_prog = np.asarray(
-                [float(np.asarray(o["progress"]).reshape(-1)[0])
-                 for o in observations])
-            pred_prog = engine.prog[:, 0]
-            for i in range(envs.num_envs):
-                wp_err.append(float(np.linalg.norm(pred_wp[i] - oracle_wp[i])))
-                no = np.linalg.norm(oracle_wp[i])
-                npr = np.linalg.norm(pred_wp[i])
-                if no > 1e-3 and npr > 1e-3:
-                    cos_sims.append(float(
-                        np.dot(pred_wp[i], oracle_wp[i]) / (no * npr)))
-                prog_err.append(float(pred_prog[i] - oracle_prog[i]))
-                if count_step < 40 and i == 0:
-                    recs.append({
-                        "step": count_step,
-                        "pred_wp": [round(float(x), 3) for x in pred_wp[i]],
-                        "oracle_wp": [round(float(x), 3)
-                                      for x in oracle_wp[i]],
-                        "pred_prog": round(float(pred_prog[i]), 3),
-                        "oracle_prog": round(float(oracle_prog[i]), 3)})
-        else:
-            engine.update_map(batch, masks)
-        if count_step < 24:
-            actions = np.stack([np.asarray(o["waypoint"], np.float32)[:2]
-                                for o in observations])
-        prog = engine.prog
-        outputs = envs.step([
-            {"action": actions[e],
-             "prog": float(prog[e, 0]) if count_step >= 24 else -1,
-             "epidsode_reset_flag": count_step == 0}
-            for e in range(envs.num_envs)])
-        observations = [o[0] for o in outputs]
-        dones = [o[2] for o in outputs]
-        infos = [o[3] for o in outputs]
-        count_step += 1
-        masks = np.array([[0.0] if d else [1.0] for d in dones], np.float32)
-        for i in range(envs.num_envs):
-            if dones[i]:
-                stats[current[i].episode_id] = infos[i]
-        if all(dones):
-            envs.resume_all()
-            observations = envs.reset()
-            engine.reset_state(envs.num_envs)
-            masks = np.zeros((envs.num_envs, 1), np.float32)
-            count_step = 0
-            actions = np.zeros((envs.num_envs, 2), np.float32)
-        batch = engine.batch_obs(observations)
-        nxt = envs.current_episodes()
-        to_pause = [i for i in range(envs.num_envs)
-                    if nxt[i].episode_id in stats]
-        if to_pause:
-            keep = [i for i in range(envs.num_envs) if i not in to_pause]
-            for i in reversed(to_pause):
-                envs.pause_at(i)
-            engine.keep(keep)
-            observations = [observations[i] for i in keep]
-            masks = masks[keep]
-            actions = actions[keep]
-            batch = engine.batch_obs(observations) if keep else batch
-            if envs.num_envs == 0:
-                break
-    return wp_err, prog_err, cos_sims, recs, stats
+    """Roll ``episodes`` episodes out with ``engine`` under the eval loop
+    (``train/evaluator.py::rollout``); returns the per-decision errors,
+    the first env's early decisions and the episodes' final measures."""
+    errors = _Errors()
+    stats = rollout(cfg, engine, envs, episodes, errors)
+    return (errors.wp_err, errors.prog_err, errors.cos_sims, errors.recs,
+            stats)
 
 
 def main():

@@ -22,7 +22,7 @@ import time
 import traceback
 import warnings
 import zlib
-from typing import Any, Dict, List, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -40,7 +40,8 @@ from ws_mgmap_tpu_torch.parallel import mesh
 from ws_mgmap_tpu_torch.train import checkpoint as ckpt_lib
 from ws_mgmap_tpu_torch.train import step as step_lib
 from ws_mgmap_tpu_torch.train.collector import collect_dataset
-from ws_mgmap_tpu_torch.train.evaluator import evaluate
+from ws_mgmap_tpu_torch.train.evaluator import (EvalObserver, evaluate,
+                                                rollout)
 from ws_mgmap_tpu_torch.train.losses import MonitorConfig
 from ws_mgmap_tpu_torch.train.replay import ReplayLoader
 from ws_mgmap_tpu_torch.train.rollout import RolloutEngine
@@ -92,6 +93,28 @@ def add_video_sensors(config) -> None:
     if "SEMANTIC_SENSOR" not in agent_sensors:
         agent_sensors.append("SEMANTIC_SENSOR")
     config.TASK_CONFIG.SIMULATOR.AGENT_0.SENSORS = agent_sensors
+
+
+class _Trajectories(EvalObserver):
+    """Inference's record: each row's per-step infos, moved into
+    ``predictions`` (episode id -> infos) as its episode ends."""
+
+    def __init__(self):
+        self.predictions: Dict[str, list] = {}
+
+    def reset(self, n: int) -> None:
+        self.rows: List[list] = [[] for _ in range(n)]
+
+    def stepped(self, observations, infos, episodes) -> None:
+        for row, info in zip(self.rows, infos):
+            row.append(info)
+
+    def episode_done(self, i: int, episode, info) -> None:
+        self.predictions[episode.episode_id] = self.rows[i]
+        self.rows[i] = []
+
+    def keep(self, keep) -> None:
+        self.rows = [self.rows[i] for i in keep]
 
 
 class DaggerTrainer:
@@ -369,71 +392,13 @@ class DaggerTrainer:
         envs = construct_envs(cfg, dataset, gt, auto_reset_done=False,
                               workers=self.env_workers,
                               env_cls=VLNCEInferenceEnv)
-        # Same episode-exhaustion protocol as the evaluator
-        # (`common_trainer.py:412-476`): run until every episode is recorded
-        # once, pausing envs whose iterator cycled to a seen episode.
-        predictions: Dict[str, Any] = {}
         total = min(len(dataset.episodes), cfg.EVAL.EPISODE_COUNT)
+        trajectories = _Trajectories()
         try:
-            engine.reset_state(envs.num_envs)
-            obs = envs.reset()
-            batch = engine.batch_obs(obs)
-            masks = np.zeros((envs.num_envs, 1), np.float32)
-            trajectories: List[list] = [[] for _ in range(envs.num_envs)]
-            count_step = 0
-            actions = np.zeros((envs.num_envs, 2), np.float32)
-            while envs.num_envs > 0 and len(predictions) < total:
-                current = envs.current_episodes()
-                if count_step % cfg.step_num == 0 and count_step >= 24:
-                    out = engine.act(batch, masks)
-                    actions = out.action.cpu().numpy()
-                else:
-                    engine.update_map(batch, masks)
-                if count_step < 24:
-                    actions = np.stack([np.asarray(
-                        o["waypoint"], np.float32)[:2] for o in obs])
-                prog = engine.prog
-                outputs = envs.step([{
-                    "action": actions[e],
-                    "prog": float(prog[e, 0]) if count_step >= 24 else -1,
-                    "epidsode_reset_flag": count_step == 0,
-                    "depth_img": obs[e]["depth"],
-                } for e in range(envs.num_envs)])
-                obs = [o[0] for o in outputs]
-                dones = [o[2] for o in outputs]
-                count_step += 1
-                masks = np.array([[0.0] if d else [1.0] for d in dones],
-                                 np.float32)
-                for i in range(envs.num_envs):
-                    trajectories[i].append(outputs[i][3])
-                    if dones[i]:
-                        predictions[current[i].episode_id] = trajectories[i]
-                        trajectories[i] = []
-                if all(dones):
-                    envs.resume_all()
-                    obs = envs.reset()
-                    engine.reset_state(envs.num_envs)
-                    masks = np.zeros((envs.num_envs, 1), np.float32)
-                    trajectories = [[] for _ in range(envs.num_envs)]
-                    count_step = 0
-                    actions = np.zeros((envs.num_envs, 2), np.float32)
-                batch = engine.batch_obs(obs)
-                nxt = envs.current_episodes()
-                to_pause = [i for i in range(envs.num_envs)
-                            if nxt[i].episode_id in predictions]
-                if to_pause:
-                    keep = [i for i in range(envs.num_envs)
-                            if i not in to_pause]
-                    for i in reversed(to_pause):
-                        envs.pause_at(i)
-                    engine.keep(keep)
-                    obs = [obs[i] for i in keep]
-                    masks = masks[keep]
-                    actions = actions[keep]
-                    trajectories = [trajectories[i] for i in keep]
-                    batch = engine.batch_obs(obs) if keep else batch
+            rollout(cfg, engine, envs, total, trajectories)
         finally:
             envs.close()
+        predictions = trajectories.predictions
         out_path = cfg.INFERENCE.PREDICTIONS_FILE
         os.makedirs(os.path.dirname(out_path) or ".", exist_ok=True)
         with open(out_path, "w") as f:
