@@ -2,7 +2,7 @@
 writer side packs, the batches ``ReplayLoader`` yields for every rank of
 1, 2 and 3, and ``collate_episodes`` on a pool of any width, bit for bit;
 the loader's collation reached through the module, its errors raised to
-the consumer, and the width of its pool."""
+the consumer, the width of its pool, and the reuse of its host slabs."""
 import os
 import shutil
 import struct
@@ -13,13 +13,14 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import pytest
+import torch
 
 from tests.torch_port_common import train_episodes
 from ws_mgmap_tpu.train import replay as jreplay
 from ws_mgmap_tpu_torch.data import trajstore
 from ws_mgmap_tpu_torch.data.trajstore import (TrajStoreWriter, pack_record,
                                                unpack_record)
-from ws_mgmap_tpu_torch.train import replay
+from ws_mgmap_tpu_torch.train import host_slabs, replay
 
 LENGTHS = (5, 3, 9, 4, 7, 2, 6, 8, 3, 5, 10)
 
@@ -276,3 +277,93 @@ def test_loader_threads(monkeypatch, batch_size):
     monkeypatch.setattr(replay.dist, "is_initialized", lambda: True)
     assert replay.loader_threads(batch_size) == max(
         1, min(batch_size, cores // 2))
+
+
+@pytest.mark.parametrize("consumer", ["keeps", "drops"])
+def test_loader_reuses_its_slabs(store, consumer):
+    """Batches carved out of the loader's reusable slabs, over 3 epochs:
+    a consumer that keeps every batch, and one that drops each at once,
+    both see the JAX loader's batches, the kept ones intact after every
+    later batch was built (a slab reused too early would overwrite
+    them); the dropping one leaves the pool at queue depth + 2 slabs at
+    most. Without CUDA no slab is page-locked."""
+    kw = dict(batch_size=2, max_len=8, seed=5)
+    mine = replay.ReplayLoader(store, **kw)
+    ref = jreplay.ReplayLoader(store, **kw)
+    kept = []
+    for epoch in range(3):
+        want = list(ref)
+        got = 0
+        for i, b in enumerate(mine):
+            _assert_batches_equal(b, want[i], f"epoch {epoch} #{i}")
+            if consumer == "keeps":
+                kept.append((b, want[i]))
+            got += 1
+            del b
+        assert got == len(want) == 5
+    if consumer == "keeps":
+        for i, (b, w) in enumerate(kept):
+            _assert_batches_equal(b, w, f"kept #{i}")
+        assert len(mine.slabs) == len(kept)
+    else:
+        assert 1 <= len(mine.slabs) <= 2 + 2
+    if not torch.cuda.is_available():
+        assert mine.pinned_slabs == mine.pinned_bytes == 0
+
+
+def test_slab_pool_grows_to_the_largest_batch():
+    """A slab is sized to the batch it is first needed for; a larger
+    batch retires the smaller free slabs, and a smaller batch reuses a
+    larger slab. Arrays are aligned, writable and disjoint."""
+    pool = host_slabs.SlabPool()
+    small = [((3, 5), np.dtype(np.float32)), ((7,), np.dtype(np.uint8))]
+    large = [((30, 5), np.dtype(np.float32)), ((3, 2), np.dtype(np.int64))]
+    a, b = pool.carve(small)
+    assert a.shape == (3, 5) and b.shape == (7,) and len(pool) == 1
+    assert all(x.flags.writeable and x.ctypes.data % host_slabs.ALIGN == 0
+               for x in (a, b))
+    a[:] = 1.0
+    b[:] = 2
+    assert (a == 1.0).all() and (b == 2).all()
+    c = pool.carve(large)
+    assert len(pool) == 2  # the small slab is still in use
+    del a, b
+    assert len(pool) == 1  # released while a larger batch exists: retired
+    del c
+    d = pool.carve(small)
+    assert len(pool) == 1
+    e = pool.carve(large)
+    assert len(pool) == 2
+    del d, e
+    assert len(pool) == 2
+
+
+def test_slab_pool_stress():
+    """More threads than cores carve, fill, check and drop batches of one
+    pool, switching threads every microsecond: no batch is overwritten
+    while it is held (no slab is leased twice), and the pool ends with
+    at most one slab a thread, every one of them free."""
+    pool = host_slabs.SlabPool()
+    threads = (os.cpu_count() or 1) + 3
+    specs = [((64, 3), np.dtype(np.float32)), ((5,), np.dtype(np.int64))]
+    bad = []
+
+    def work(k: int) -> None:
+        for i in range(150):
+            a, b = pool.carve(specs)
+            a[:] = k * 1000 + i
+            b[:] = k
+            if not ((a == k * 1000 + i).all() and (b == k).all()):
+                bad.append((k, i))
+            del a, b
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        with ThreadPoolExecutor(threads) as ex:
+            list(ex.map(work, range(threads)))
+    finally:
+        sys.setswitchinterval(old)
+    assert not bad
+    assert 1 <= len(pool) <= threads
+    assert len(pool._free) == len(pool)

@@ -45,11 +45,18 @@ class InstructionEncoder(nn.Module):
         the module's device. The biLSTM steps only as far as the longest
         row (past it every row's output is zero); that length is read
         where the tokens lie, so tokens on the host cost the card no
-        sync."""
+        sync. Tokens in page-locked memory (a training batch from the
+        loader's slabs) go to the card without blocking the host: a
+        blocking copy would wait for the batch's upload queued before
+        it."""
         lengths = (tokens != 0).sum(1)
         t, steps = tokens.shape[1], max(int(lengths.max()), 1)
         device = self.embedding_layer.weight.device
-        tokens, lengths = tokens.to(device), lengths.to(device)
+        pinned = device.type != "cpu" and tokens.is_pinned()
+        if pinned:
+            lengths = lengths.pin_memory()
+        tokens = tokens.to(device, non_blocking=pinned)
+        lengths = lengths.to(device, non_blocking=pinned)
         out = self.encoder_rnn(self.embedding_layer(tokens[:, :steps]),
                                lengths)
         out = F.pad(out, (0, 0, 0, t - steps))

@@ -11,7 +11,9 @@ port's trajectory store (``data/trajstore.py``):
     batch's record reads and episode rows out over a pool of worker
     threads (:func:`loader_threads`);
   * collate (:func:`collate_episodes`): episode-major [N, T, ...] padded
-    with 1.0, zero weights on padding, not-done masks 0 at t=0.
+    with 1.0, zero weights on padding, not-done masks 0 at t=0, carved
+    out of the loader's reusable host slabs (``train/host_slabs.py``),
+    page-locked where CUDA is present.
 On the same store, seed, rank and world size the loader yields the JAX
 package's batches bit for bit.
 """
@@ -30,6 +32,8 @@ import torch.distributed as dist
 
 from ws_mgmap_tpu_torch.data.trajstore import (TrajStoreReader, pack_record,
                                                unpack_record)
+from ws_mgmap_tpu_torch.train import host_slabs
+from ws_mgmap_tpu_torch.train.host_slabs import SlabPool
 from ws_mgmap_tpu_torch.utils import profiling
 
 NARROW_DTYPES = {
@@ -118,6 +122,10 @@ class ReplayLoader:
     A batch's records are read and inflated, and its episodes' rows
     filled, on a pool of :func:`loader_threads` worker threads, created
     on the first iteration; the batches are the same as one thread's.
+    Each batch is carved out of a slab of ``slabs``
+    (:class:`host_slabs.SlabPool`: page-locked where CUDA is present),
+    which returns to the pool once the consumer has dropped every array
+    of the batch; the pool grows to the batches alive at once.
     """
 
     def __init__(
@@ -141,6 +149,17 @@ class ReplayLoader:
         self.drop_last = drop_last
         self._epoch = 0
         self._pool: Executor | None = None
+        self.slabs = SlabPool()
+
+    @property
+    def pinned_slabs(self) -> int:
+        """The page-locked slabs the loader's batches are carved from."""
+        return self.slabs.pinned_slabs
+
+    @property
+    def pinned_bytes(self) -> int:
+        """The bytes of those slabs."""
+        return self.slabs.pinned_bytes
 
     def __len__(self) -> int:
         per = len(self.reader) // self.world_size
@@ -180,10 +199,13 @@ class ReplayLoader:
             with profiling.span("replay.read"):
                 eps = list(pool.map(self._fetch, chunk))
             eps.sort(key=lambda e: e["prev_actions"].shape[0])
-            with profiling.span("replay.collate"):
-                batch = collate_episodes(eps, self.max_len,
-                                         fixed_len=self.fixed_len, pool=pool)
-            yield batch
+            yield self._collate(eps, pool)
+
+    def _collate(self, eps: list, pool: Executor) -> dict[str, Any]:
+        with profiling.span("replay.collate"):
+            return collate_episodes(eps, self.max_len,
+                                    fixed_len=self.fixed_len, pool=pool,
+                                    slabs=self.slabs)
 
     def __iter__(self) -> Iterator[dict[str, Any]]:
         """One epoch; a background thread builds up to two batches ahead
@@ -201,6 +223,7 @@ class ReplayLoader:
             try:
                 for b in self._batches(pool):
                     q.put(b)
+                    del b  # the batch's slab returns once its consumer is done
                     if stop.is_set():
                         break
             except Exception as e:  # any error: the consumer raises it
@@ -219,6 +242,7 @@ class ReplayLoader:
                 if isinstance(item, Exception):
                     raise item
                 yield item
+                del item  # the consumer's reference alone keeps the slab
         finally:
             # a consumer that leaves early: the producer puts at most two
             # more items into the emptied queue and ends
@@ -235,7 +259,8 @@ def collate_episodes(episodes: Sequence[dict[str, Any]],
                      max_len: int = 200,
                      t_bucket: int = 16,
                      fixed_len: bool = False,
-                     pool: Executor | None = None) -> dict[str, Any]:
+                     pool: Executor | None = None,
+                     slabs: SlabPool | None = None) -> dict[str, Any]:
     """Pad and stack episodes to [N, T, ...].
 
     Each episode is {"obs": {key: [len, ...]}, "prev_actions": [len, 2],
@@ -247,9 +272,12 @@ def collate_episodes(episodes: Sequence[dict[str, Any]],
     "prev_actions": [N, T, 2], "weights": [N, T] (0 on padding),
     "not_done_masks": [N, T] (0 at t=0)}, every array writable.
 
-    Each output is allocated once; each episode's rows are written in
-    one pass, on ``pool``'s threads when one is given (numpy's copies
-    release the interpreter lock), else in turn on this one.
+    Every output is carved out of one block of host memory: a slab of
+    ``slabs`` when one is given (page-locked where CUDA is present, and
+    reused once the batch is gone), else fresh plain memory. Each
+    episode's rows are written in one pass, on ``pool``'s threads when one
+    is given (numpy's copies release the interpreter lock), else in turn
+    on this one.
     """
     n = len(episodes)
     if fixed_len:
@@ -259,17 +287,21 @@ def collate_episodes(episodes: Sequence[dict[str, Any]],
         if t_bucket > 1:
             t_max = min(-(-t_max // t_bucket) * t_bucket, max_len)
 
-    def empty(leaves, widen: bool) -> np.ndarray:
+    def spec(leaves, widen: bool) -> tuple[tuple[int, ...], np.dtype]:
         dtype = np.result_type(*(leaf.dtype for leaf in leaves))
         if widen and dtype == np.float16:
             dtype = np.dtype(np.float32)
-        return np.empty((n, t_max) + leaves[0].shape[1:], dtype)
+        return (n, t_max) + leaves[0].shape[1:], dtype
 
     leaves = {k: [np.asarray(e["obs"][k]) for e in episodes]
               for k in episodes[0]["obs"]}
-    obs = {k: empty(v, True) for k, v in leaves.items()}
     prev = [np.asarray(e["prev_actions"]) for e in episodes]
-    prev_actions = empty(prev, False)
+    specs = [spec(v, True) for v in leaves.values()]
+    specs += [spec(prev, False), ((n, t_max), np.dtype(np.float32)),
+              ((n, t_max), np.dtype(np.float32))]
+    *arrays, prev_actions, weights, masks = (
+        slabs.carve(specs) if slabs is not None else host_slabs.carve(specs))
+    obs = dict(zip(leaves, arrays))
 
     def fill(i: int) -> None:
         with profiling.span("replay.fill"):
@@ -279,10 +311,10 @@ def collate_episodes(episodes: Sequence[dict[str, Any]],
 
     # list() reads every row's result: a worker's error is raised here
     list(pool.map(fill, range(n)) if pool is not None else map(fill, range(n)))
-    weights = np.zeros((n, t_max), np.float32)
+    weights[:] = 0.0
     for i, e in enumerate(episodes):
         weights[i, :min(e["prev_actions"].shape[0], t_max)] = 1.0
-    masks = np.ones((n, t_max), np.float32)
+    masks[:] = 1.0
     masks[:, 0] = 0.0
     return {
         "obs": obs,

@@ -86,14 +86,36 @@ def upload_batch(batch: dict[str, Any], device: torch.device
                  ) -> dict[str, Any]:
     """A collated batch (numpy or tensors) on ``device``; the instruction
     tokens stay on the host, where the biLSTM reads its step count without
-    a sync."""
+    a sync.
+
+    A leaf in page-locked memory (the loader's slabs where CUDA is
+    present) is copied without blocking the host, on the current stream,
+    so the work queued after it waits for it and the host does not; any
+    other leaf as a blocking copy. ``upload_batch.pinned_bytes`` and
+    ``.pageable_bytes`` count the bytes copied from each kind of memory.
+    """
+    device = torch.device(device)
+
     def put(k, v):
         t = v if torch.is_tensor(v) else torch.from_numpy(np.asarray(v))
-        return t if k == "instruction" else t.to(device)
+        if k == "instruction":
+            return t
+        if t.device.type != "cpu" or device.type == "cpu":
+            return t.to(device)  # no copy from the host
+        pinned = t.is_pinned()
+        if pinned:
+            upload_batch.pinned_bytes += t.nbytes
+        else:
+            upload_batch.pageable_bytes += t.nbytes
+        return t.to(device, non_blocking=pinned)
 
     out = {k: put(k, v) for k, v in batch.items() if k != "obs"}
     out["obs"] = {k: put(k, v) for k, v in batch["obs"].items()}
     return out
+
+
+upload_batch.pinned_bytes = 0
+upload_batch.pageable_bytes = 0
 
 
 def make_train_step(monitors: MonitorConfig, remat: bool = False,
